@@ -2,11 +2,13 @@
 
 Two kinds of library are built, both from sources in this repository:
 
-* the CUDA kernels of ``csrc/`` — compiled by ``nvcc`` for ``sm_90a`` into
-  one shared library with a plain C interface, loaded with :mod:`ctypes`;
+* the CUDA kernels of ``csrc/`` — each source compiled by its own ``nvcc``
+  process for ``sm_90a``, all at once, then linked into one shared library
+  with a plain C interface, loaded with :mod:`ctypes`;
 * the host C++ of the JAX package (push-relabel min-cut, native PFDR) —
-  compiled by ``g++`` from their paths in ``cp_pfdr_graph_d1_tpu/``, not
-  copied, so the two packages run the same host code.
+  compiled the same way by ``g++`` from their paths in
+  ``cp_pfdr_graph_d1_tpu/``, not copied, so the two packages run the same
+  host code.
 
 A library is rebuilt when it is missing or older than one of its sources.
 Each build writes to a temporary name and renames it into place, so
@@ -39,24 +41,47 @@ def _stale(so: Path, sources) -> bool:
             or any(so.stat().st_mtime < s.stat().st_mtime for s in sources))
 
 
+def _run(cmds):
+    """Runs the commands concurrently; returns their combined output, or
+    raises with the output of the first that failed."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    outs = [p.communicate()[0] for p in procs]
+    for c, p, out in zip(cmds, procs, outs):
+        if p.returncode != 0:
+            raise RuntimeError(f"build step failed:\n{' '.join(c)}\n{out}")
+    return "".join(outs)
+
+
 def _build(name: str, sources, cmd, headers=()) -> Path:
+    """Builds ``lib{name}.so`` from ``sources`` with the compiler command
+    ``cmd`` when it is stale: every source to an object file, one compiler
+    process each, all at once, then one link."""
     so = BUILD_DIR / f"lib{name}.so"
     for s in list(sources) + list(headers):
         if not s.exists():
             raise FileNotFoundError(f"source of {so.name} not found: {s}")
     if _stale(so, list(sources) + list(headers)):
         BUILD_DIR.mkdir(exist_ok=True)
-        tmp = BUILD_DIR / f".{so.name}.{os.getpid()}.tmp"
+        tag = f"{os.getpid()}.tmp"
+        tmp = BUILD_DIR / f".{so.name}.{tag}"
+        objs = [BUILD_DIR / f".{name}.{i}.{s.stem}.{tag}.o"
+                for i, s in enumerate(sources)]
         t0 = time.monotonic()
-        proc = subprocess.run(cmd + ["-o", str(tmp)]
-                              + [str(s) for s in sources],
-                              capture_output=True, text=True)
-        if proc.returncode != 0:
+        try:
+            log = _run([cmd + ["-c", "-o", str(o), str(s)]
+                        for s, o in zip(sources, objs)])
+            log += _run([cmd + ["-shared", "-o", str(tmp)]
+                         + [str(o) for o in objs]])
+        except RuntimeError:
             tmp.unlink(missing_ok=True)
-            raise RuntimeError(f"building {so.name} failed:\n"
-                               f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
+            raise
+        finally:
+            for o in objs:
+                o.unlink(missing_ok=True)
         os.replace(tmp, so)
-        build_log[name] = (time.monotonic() - t0, proc.stdout + proc.stderr)
+        build_log[name] = (time.monotonic() - t0, log)
     return so
 
 
@@ -89,8 +114,8 @@ def cuda_kernels() -> ctypes.CDLL:
     headers = sorted(CSRC_DIR.glob("*.cuh"))
     arch = CUDA_ARCH.removeprefix("sm_")
     cmd = [nvcc_path(), f"-gencode=arch=compute_{arch},code={CUDA_ARCH}",
-           "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-           "-Xptxas", "-v", f"-I{CSRC_DIR}"]
+           "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+           f"-I{CSRC_DIR}"]
     return _load("cp_pfdr_kernels", sources, cmd, headers)
 
 
@@ -100,5 +125,5 @@ def host_library(name: str, relative_sources) -> ctypes.CDLL:
     if lib is not None:
         return lib
     sources = [JAX_PKG_DIR / s for s in relative_sources]
-    cmd = ["g++", "-O3", "-march=native", "-fPIC", "-shared", "-std=c++17"]
+    cmd = ["g++", "-O3", "-march=native", "-fPIC", "-std=c++17"]
     return _load(name, sources, cmd)

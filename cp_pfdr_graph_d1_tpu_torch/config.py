@@ -7,9 +7,9 @@ by field (:mod:`.convert`).  Two meanings differ in the port:
   when the tensors lie on a CUDA device, and the staged PyTorch loop
   otherwise; ``"on"`` goes through the kernel's wrapper on any device (on
   the CPU the wrapper runs the kernel's plain PyTorch version).
-* ``CPOptions.cut="device"`` and ``CPOptions.chain="on"`` are routes that
-  this port does not have yet; asking for them raises
-  :class:`NotImplementedError` instead of falling back to the host route.
+* ``CPOptions.chain="auto"`` takes the chained loop for float32 tensors on
+  a CUDA device with a stencil graph (the JAX package: float32 on a TPU
+  with a stencil its fused kernels admit).
 """
 from __future__ import annotations
 
@@ -77,17 +77,23 @@ class CPOptions:
         on an accelerator; where the crossover lies on a GPU is not
         measured yet, so the port never moves work to the host unasked).
       host_small_max: component-count crossover of the native route.
-      cut: "host" only (native push-relabel).  "device" is ROADMAP queue 1
-        item 6 and raises here.
-      cut_tol, cut_it_max, chain_init_pfdr: read by the device cut and the
-        chained loop (ROADMAP queue 1 items 6-7); kept so the JAX package's
-        options convert field by field.
+      cut: "host" (native push-relabel on the host) or "device" (certified
+        PDHG min-cut, components and contraction on the tensors' device;
+        the chained loop or the per-iteration device loop, see ``chain``).
+      cut_tol: duality-gap certificate of a device cut, relative to the
+        cut's cost scale.
+      cut_it_max: PDHG step cap of a device cut.
+      chain_init_pfdr: full-graph PFDR iterations of the chained loop's
+        warm partition (0 starts from one component).
       inexact: "auto" caps intermediate reduced solves at ``inexact_cap``
         iterations and polishes the settled partition at full accuracy;
         "off" runs every reduced solve at full accuracy.
       inexact_cap: iteration cap of intermediate reduced solves.
-      chain: "auto" | "off"; the chained device loop ("on") is ROADMAP
-        queue 1 item 7 and raises here.
+      chain: "auto" | "on" | "off": how ``cut="device"`` runs its outer
+        loop.  "auto" takes the chained loop
+        (:mod:`.solvers.cut_pursuit_chain`) for float32 tensors on a CUDA
+        device with a stencil graph, "on" on any device, "off" never (the
+        per-iteration device loop, :mod:`.solvers.cut_pursuit_device`).
     """
 
     dif_tol: float = 1e-3
@@ -105,17 +111,9 @@ class CPOptions:
     chain_init_pfdr: int = 600
 
     def __post_init__(self):
-        if self.cut == "device":
-            raise NotImplementedError(
-                "cut='device' (PDHG min-cut on the device) is not ported "
-                "yet: ROADMAP queue 1 item 6")
-        if self.cut != "host":
+        if self.cut not in ("host", "device"):
             raise ValueError(f"unknown cut backend {self.cut!r}")
-        if self.chain == "on":
-            raise NotImplementedError(
-                "chain='on' (the chained device outer loop) is not ported "
-                "yet: ROADMAP queue 1 item 7")
-        if self.chain not in ("auto", "off"):
+        if self.chain not in ("auto", "on", "off"):
             raise ValueError(f"unknown chain mode {self.chain!r}")
         if self.host_small not in ("auto", "on", "off"):
             raise ValueError(f"unknown host_small mode {self.host_small!r}")

@@ -1,13 +1,45 @@
-// Device helpers shared by the PFDR kernels of this directory: the per-edge
-// d1 pair prox with relaxation, the vertex prox, and a deterministic block
-// reduction.  Formulas follow PFDR_graph_quadratic_d1_l1.cpp:463-529 and the
-// JAX package's kernels (ops/stencil_fused.py:_kernel,
-// ops/solve_small.py:_kernel).
+// Device helpers shared by the kernels of this directory: the per-edge d1
+// pair prox with relaxation, the vertex prox, deterministic block
+// reductions, the stencil index arithmetic, and the cooperative launch of
+// the kernels that synchronise their whole grid.  Formulas follow
+// PFDR_graph_quadratic_d1_l1.cpp:463-529 and the JAX package's kernels
+// (ops/stencil_fused.py:_kernel, ops/solve_small.py:_kernel).
 #pragma once
 
 #include <cuda_runtime.h>
 
 namespace cp_pfdr {
+
+// shift families of a stencil graph: family f links cell (i, j) to
+// ((i + dy[f]) mod H, (j + dx[f]) mod W)
+constexpr int kMaxFamilies = 16;
+
+struct Shifts {
+  int n;
+  int dy[kMaxFamilies];
+  int dx[kMaxFamilies];
+};
+
+inline int make_shifts(int f, const int *flat, Shifts &sh) {
+  if (f < 1 || f > kMaxFamilies) return -1;
+  sh.n = f;
+  for (int k = 0; k < f; ++k) {
+    sh.dy[k] = flat[2 * k];
+    sh.dx[k] = flat[2 * k + 1];
+  }
+  return 0;
+}
+
+__device__ __forceinline__ int wrap_index(int a, int n) {
+  a %= n;
+  return a < 0 ? a + n : a;
+}
+
+// cell reached from (i, j) by the shift (dy, dx), circular on both axes
+__device__ __forceinline__ int shifted_cell(int i, int j, int dy, int dx,
+                                            int h, int w) {
+  return wrap_index(i + dy, h) * w + wrap_index(j + dx, w);
+}
 
 enum VertexKind { kVertexNone = 0, kVertexL1 = 1, kVertexBounds = 2 };
 
@@ -86,6 +118,60 @@ __device__ __forceinline__ void block_sum2(T &a, T &b, T *scratch) {
     }
   }
   __syncthreads();
+}
+
+// Sums K values per thread over the block in a fixed order (shuffle tree
+// inside each warp, then thread k < K adds the per-warp sums in warp
+// order).  The K sums are valid in threads 0..K-1 (thread k holds sum k).
+// scratch holds 32 * K values.  Every thread of the block must call it.
+template <typename T, int K>
+__device__ __forceinline__ void block_sum_k(T (&v)[K], T *scratch, T &out) {
+  const unsigned full = 0xffffffffu;
+#pragma unroll
+  for (int k = 0; k < K; ++k)
+    for (int off = 16; off > 0; off >>= 1)
+      v[k] += __shfl_down_sync(full, v[k], off);
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int nwarps = (blockDim.x + 31) >> 5;
+  if (lane == 0) {
+#pragma unroll
+    for (int k = 0; k < K; ++k) scratch[k * 32 + warp] = v[k];
+  }
+  __syncthreads();
+  out = T(0);
+  if (threadIdx.x < K)
+    for (int q = 0; q < nwarps; ++q) out += scratch[threadIdx.x * 32 + q];
+  __syncthreads();
+}
+
+// Launches a kernel that synchronises its whole grid (cooperative launch):
+// as many blocks of `threads` as can be resident at once on the device,
+// at most `max_blocks`.  Returns a CUDA error code (0 on success); a
+// refused launch is reported, never retried with another shape.
+template <typename Kernel>
+inline int cooperative_launch(Kernel kernel, int threads, int max_blocks,
+                              void **args, cudaStream_t stream,
+                              int *grid_out) {
+  int dev = 0, sms = 0, per_sm = 0, coop = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, reinterpret_cast<const void *>(kernel), threads, 0);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (!coop || per_sm < 1) return static_cast<int>(cudaErrorNotSupported);
+  int grid = per_sm * sms;
+  if (grid > max_blocks) grid = max_blocks;
+  if (grid < 1) grid = 1;
+  if (grid_out) *grid_out = grid;
+  err = cudaLaunchCooperativeKernel(reinterpret_cast<const void *>(kernel),
+                                    dim3(grid), dim3(threads), args, 0,
+                                    stream);
+  return static_cast<int>(err);
 }
 
 }  // namespace cp_pfdr

@@ -32,19 +32,7 @@
 
 namespace cp_pfdr {
 
-constexpr int kMaxFamilies = 16;
 constexpr int kStencilBlock = 256;
-
-struct Shifts {
-  int n;
-  int dy[kMaxFamilies];
-  int dx[kMaxFamilies];
-};
-
-__device__ __forceinline__ int wrap_index(int a, int n) {
-  a %= n;
-  return a < 0 ? a + n : a;
-}
 
 template <typename T>
 __global__ void __launch_bounds__(kStencilBlock)
@@ -128,13 +116,8 @@ int stencil_stage(const T *x, const T *grad, const T *ga, const T *th_l1,
                   T *zuo, T *zvo, T *partials, T *sums, int h, int w, int f,
                   const int *shifts, double rho, int vkind, int positivity,
                   double lo, double hi, void *stream) {
-  if (f < 1 || f > kMaxFamilies || h < 1 || w < 1) return -1;
   Shifts sh;
-  sh.n = f;
-  for (int k = 0; k < f; ++k) {
-    sh.dy[k] = shifts[2 * k];
-    sh.dx[k] = shifts[2 * k + 1];
-  }
+  if (make_shifts(f, shifts, sh) != 0 || h < 1 || w < 1) return -1;
   const int hw = h * w;
   const int nblocks = (hw + kStencilBlock - 1) / kStencilBlock;
   cudaStream_t s = static_cast<cudaStream_t>(stream);

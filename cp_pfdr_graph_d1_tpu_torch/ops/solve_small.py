@@ -22,6 +22,7 @@ import ctypes
 import torch
 
 from .. import _build
+from ..graph import csr_table, incidence_csr
 
 # opt-in dynamic shared memory of one Hopper block (232,448 bytes), less
 # room for the kernel's static shared variables
@@ -45,38 +46,6 @@ def fits(rv_cap: int, n_rows: int, dtype) -> bool:
     return smem_bytes(rv_cap, n_rows, itemsize) <= MAX_SMEM_BYTES
 
 
-def incidence_csr(eu, ev, num_vertices: int):
-    """Per-vertex incidence list of the endpoint slots (slot ``s < E`` is
-    edge ``s``'s u-end, ``E + s`` its v-end), sorted by slot within each
-    vertex: ``(offsets int32 [V + 1], slots int32 [2E])``.  Raises on an
-    endpoint outside ``[0, num_vertices)``: the kernel indexes its shared
-    memory by endpoint."""
-    slot_vertex = torch.cat([eu, ev]).to(torch.int64)
-    if slot_vertex.numel():
-        lo, hi = (int(v) for v in torch.aminmax(slot_vertex))
-        if lo < 0 or hi >= num_vertices:
-            raise ValueError(f"edge endpoints span [{lo}, {hi}], outside "
-                             f"the {num_vertices} vertices")
-    order = torch.sort(slot_vertex, stable=True).indices
-    counts = torch.bincount(slot_vertex, minlength=num_vertices)
-    offsets = torch.zeros(num_vertices + 1, dtype=torch.int64,
-                          device=eu.device)
-    offsets[1:] = torch.cumsum(counts, 0)
-    return offsets.to(torch.int32), order.to(torch.int32)
-
-
-def _csr_table(offsets, slots):
-    """Padded [V, max degree] table of a CSR incidence list; the sentinel
-    ``len(slots)`` selects a zero pad."""
-    offsets = offsets.to(torch.int64)
-    deg = offsets[1:] - offsets[:-1]
-    width = max(int(deg.max()) if deg.numel() else 0, 1)
-    k = torch.arange(width, device=offsets.device)
-    pos = (offsets[:-1, None] + k[None]).clamp(max=max(slots.numel() - 1, 0))
-    return torch.where(k[None] < deg[:, None], slots.to(torch.int64)[pos],
-                       slots.numel())
-
-
 def solve_small_plain(op_kind: str, op, aty, ga, th_l1, x0, z0, ec, eu, ev,
                       *, rv: int, it_max: int, rho: float, vkind: str,
                       positivity: bool, lo: float, hi: float,
@@ -86,7 +55,7 @@ def solve_small_plain(op_kind: str, op, aty, ga, th_l1, x0, z0, ec, eu, ev,
     rv_cap = x0.shape[0]
     # edge -> vertex sums by gather and row sum: deterministic on every
     # device, in the CSR order the kernel uses
-    table = _csr_table(*incidence_csr(eu, ev, rv_cap))
+    table = csr_table(*incidence_csr(eu, ev, rv_cap))
     eu = eu.to(torch.int64)
     ev = ev.to(torch.int64)
     wu, wv, wdu, wdv, thd = ec
@@ -150,7 +119,7 @@ def _lib():
     return lib
 
 
-def _check(op_kind, op, vertex_rows, z0, ec, eu, ev, rv):
+def _check(op_kind, op, vertex_rows, z0, ec, eu, ev, rv, size_limit=True):
     x0 = vertex_rows[0]
     rv_cap = x0.shape[0]
     ne = eu.shape[0]
@@ -180,7 +149,7 @@ def _check(op_kind, op, vertex_rows, z0, ec, eu, ev, rv):
         raise ValueError(f"need at least one edge and 0 <= rv <= rv_cap "
                          f"(ne={ne}, rv={rv}, rv_cap={rv_cap})")
     n_rows = op.shape[0] if op_kind == "dense" else 0
-    if not fits(rv_cap, n_rows, x0.dtype):
+    if size_limit and not fits(rv_cap, n_rows, x0.dtype):
         raise ValueError(
             f"reduced problem too large for the solve_small kernel: "
             f"rv_cap={rv_cap}, n_rows={n_rows}, {x0.dtype} needs "

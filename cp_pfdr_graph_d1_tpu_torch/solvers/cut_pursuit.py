@@ -9,19 +9,24 @@ components of inactive edges — the algorithm of
 ``CP_PFDR_graph_quadratic_d1_l1.cpp:212-1007`` and
 ``CP_PFDR_graph_quadratic_d1_bounds.cpp:207``.
 
-The steepest cut (native push-relabel), the components and the contraction
-run on the host in numpy and scipy.  Each reduced problem goes, in this
-order, to:
+With ``cut="host"`` the steepest cut (native push-relabel), the components
+and the contraction run on the host in numpy and scipy.  Each reduced
+problem goes, in this order, to:
 
-1. the whole-solve kernel :mod:`..ops.solve_small` when the tensors lie on a
-   CUDA device (or ``pfdr.fused="on"``): the reduced operator and Lipschitz
-   metric are matrix products on the device, the preconditioning runs on
-   the device, and one launch runs the whole PFDR solve.  A reduced problem
-   beyond the kernel's shared-memory limit, or PFDR options the kernel
-   does not serve (reconditioning, progress lines), raise;
+1. one whole-solve kernel when the tensors lie on a CUDA device (or
+   ``pfdr.fused="on"``): the reduced operator and Lipschitz metric are
+   matrix products on the device, the preconditioning runs on the device,
+   and one launch of :mod:`..ops.solve_small` (or, from 4096 reduced
+   vertices on, of :mod:`..ops.solve_fused`) runs the whole PFDR solve.
+   PFDR options the kernels do not serve (reconditioning, progress lines)
+   raise;
 2. the native C++ PFDR on the host, only with ``host_small="on"``;
 3. the staged PyTorch PFDR loop of :mod:`.pfdr_quadratic`
    (``pfdr.fused="off"``, or CPU tensors with ``"auto"``).
+
+``cut="device"`` keeps the whole iteration on the tensors' device: the
+chained loop (:mod:`.cut_pursuit_chain`) or the per-iteration device loop
+(:mod:`.cut_pursuit_device`), as ``CPOptions.chain`` selects.
 """
 from __future__ import annotations
 
@@ -37,6 +42,7 @@ from ..config import CPOptions, Lipsch, numpy_dtype
 from ..graph import GraphD1
 from ..operators import DenseOp, DiagOp, GramOp, IdentityOp, QuadOp
 from ..ops.power_iter import MatApply, dense_operator_norm, operator_norm
+from ..ops.solve_fused import fused_pfdr_solve
 from ..ops.solve_small import fits, fused_pfdr_solve_small
 from ..utils.monitor import StageProfiler
 from .cut_pursuit_common import (bucket, build_reduced_graph,
@@ -139,17 +145,69 @@ def _reduce_operator(kind: str, op_arr, obs, cv, rv_cap: int, pre_at: bool):
     return DiagOp(mat), mat, ry, lipsch
 
 
-def _reduce_solve_small(op_arr, obs, cv, rgraph: GraphD1, r_la_l1, x0,
-                        it_max: int, rv: int, *, kind: str, pre_at: bool,
-                        vprox: VertexProx, rho: float, dif_tol: float):
-    """One reduced cut-pursuit stage through :mod:`..ops.solve_small`: the
-    reduced operator and Lipschitz metric, the preconditioning on the
-    reduced graph, and the whole PFDR solve in one kernel launch.
+# from this many reduced vertices on, solve_fused (every SM of the card)
+# beats solve_small (one block) on an NVIDIA H100 80GB HBM3 at 700 W: per
+# 300 float32 iterations of the EEG problem's first reduced problem
+# (rv_cap 4096), 5.806 against 13.777 ms with the dense operator and 3.205
+# against 4.777 ms with the diagonal one; at rv_cap 1024 and below
+# solve_small wins (chip_smoke.py's crossover lines, PERF.md)
+SOLVE_FUSED_MIN_RV_CAP = 4096
+
+
+def kernel_solve_inputs(r_op: QuadOp, mat, ry, lipsch, rgraph: GraphD1,
+                        r_la_l1, x0, rv: int, *, vprox: VertexProx,
+                        rho: float, dif_tol: float, sort_edges: bool):
+    """Arguments of the whole-solve kernels for one reduced problem: the
+    preconditioning on the reduced graph, then the vertex rows, the edge
+    rows (sorted stably by their smaller endpoint with ``sort_edges``, the
+    order ``solve_fused`` takes) and the options.  Returns ``(args, kw)``
+    for :func:`..ops.solve_small.fused_pfdr_solve_small` or
+    :func:`..ops.solve_fused.fused_pfdr_solve` (``it_max`` not
+    included)."""
+    pre = initial_precondition(r_op, ry, rgraph, r_la_l1, rho, lipsch,
+                               Lipsch.DIAG)
+    if isinstance(r_op, DenseOp):
+        op_kind, aty = "dense", r_op.apply_t(ry)
+    elif isinstance(r_op, DiagOp):
+        op_kind, aty = "diag", ry
+    else:
+        op_kind, aty = "gram", ry
+    eu, ev = rgraph.eu, rgraph.ev
+    ec = torch.stack([pre.wu, pre.wv, pre.w_d1u, pre.w_d1v, pre.th_d1])
+    if sort_edges:
+        perm = torch.sort(torch.minimum(eu, ev), stable=True).indices
+        eu, ev, ec = eu[perm], ev[perm], ec[:, perm].contiguous()
+    args = (op_kind, mat.contiguous(), aty.contiguous(), pre.ga.contiguous(),
+            pre.th_l1.contiguous(), x0.contiguous(),
+            torch.stack([x0[eu], x0[ev]]), ec, eu, ev)
+    kw = dict(rv=rv, rho=rho, vkind=vprox.kind, positivity=vprox.positivity,
+              lo=float(vprox.lo), hi=float(vprox.hi),
+              dif_tol2=float(dif_tol) ** 2,
+              eps=machine_eps(numpy_dtype(ry.dtype), dif_tol))
+    return args, kw
+
+
+def fits_small(r_op: QuadOp, mat, rv_cap: int) -> bool:
+    """Whether the reduced problem fits one block's shared memory
+    (:func:`..ops.solve_small.fits`)."""
+    n_rows = mat.shape[0] if isinstance(r_op, DenseOp) else 0
+    return fits(rv_cap, n_rows, mat.dtype)
+
+
+def _kernel_solve(r_op: QuadOp, mat, ry, lipsch, rgraph: GraphD1, r_la_l1,
+                  x0, rv: int, it_max: int, *, vprox: VertexProx, rho: float,
+                  dif_tol: float):
+    """Whole reduced PFDR solve in one kernel launch
+    (:func:`kernel_solve_inputs`): :mod:`..ops.solve_small` when the
+    problem fits one block (:func:`fits_small`) and has fewer than
+    ``SOLVE_FUSED_MIN_RV_CAP`` vertices, else :mod:`..ops.solve_fused`.
+    The two compute the same function, so the choice changes speed, not
+    the result beyond float rounding.  CPU tensors run the kernels' plain
+    versions.
 
     Args:
-      op_arr: the full operator's array (dense ``A`` [N, V], Gram [V, V] or
-        diagonal [V]) on the device.
-      cv: int [V] component labels on the device.
+      r_op, mat, ry, lipsch: reduced operator, its array, observation and
+        DIAG Lipschitz metric (:func:`_reduce_operator`).
       rgraph: reduced graph over ``rv_cap = rgraph.num_vertices`` vertices
         (components ``>= rv`` are padding; padding edges have weight 0).
       r_la_l1: [rv_cap] summed l1 weights, or None.
@@ -158,26 +216,30 @@ def _reduce_solve_small(op_arr, obs, cv, rgraph: GraphD1, r_la_l1, x0,
     Returns:
       ``(x [rv_cap], it)`` with ``it`` a 0-d int32 tensor.
     """
+    small = (rgraph.num_vertices < SOLVE_FUSED_MIN_RV_CAP
+             and fits_small(r_op, mat, rgraph.num_vertices))
+    args, kw = kernel_solve_inputs(r_op, mat, ry, lipsch, rgraph, r_la_l1,
+                                   x0, rv, vprox=vprox, rho=rho,
+                                   dif_tol=dif_tol, sort_edges=not small)
+    if small:
+        x, _, it, _ = fused_pfdr_solve_small(*args, it_max=it_max, **kw)
+    else:
+        x, _, it, _ = fused_pfdr_solve(*args, it_max=it_max, **kw)
+    return x, it
+
+
+def _reduce_solve_small(op_arr, obs, cv, rgraph: GraphD1, r_la_l1, x0,
+                        it_max: int, rv: int, *, kind: str, pre_at: bool,
+                        vprox: VertexProx, rho: float, dif_tol: float):
+    """One reduced cut-pursuit stage of the kernel route (counterpart of
+    the JAX package's ``_reduce_solve_small``): the reduced operator and
+    Lipschitz metric (:func:`_reduce_operator`, ``op_arr`` the full
+    operator's array, ``cv`` int [V] labels on the device), then
+    :func:`_kernel_solve`.  Returns ``(x [rv_cap], it)``."""
     r_op, mat, ry, lipsch = _reduce_operator(kind, op_arr, obs, cv,
                                              rgraph.num_vertices, pre_at)
-    pre = initial_precondition(r_op, ry, rgraph, r_la_l1, rho, lipsch,
-                               Lipsch.DIAG)
-    if kind == "dense" and not pre_at:
-        op_kind, aty = "dense", r_op.apply_t(ry)
-    elif kind == "diag":
-        op_kind, aty = "diag", ry
-    else:
-        op_kind, aty = "gram", ry
-    z0 = torch.stack([x0[rgraph.eu], x0[rgraph.ev]])
-    ec = torch.stack([pre.wu, pre.wv, pre.w_d1u, pre.w_d1v, pre.th_d1])
-    eps = machine_eps(numpy_dtype(obs.dtype), dif_tol)
-    x, _, it, _ = fused_pfdr_solve_small(
-        op_kind, mat.contiguous(), aty.contiguous(), pre.ga.contiguous(),
-        pre.th_l1.contiguous(), x0.contiguous(), z0, ec, rgraph.eu,
-        rgraph.ev, rv=rv, it_max=it_max, rho=rho, vkind=vprox.kind,
-        positivity=vprox.positivity, lo=float(vprox.lo), hi=float(vprox.hi),
-        dif_tol2=float(dif_tol) ** 2, eps=eps)
-    return x, it
+    return _kernel_solve(r_op, mat, ry, lipsch, rgraph, r_la_l1, x0, rv,
+                         it_max, vprox=vprox, rho=rho, dif_tol=dif_tol)
 
 
 # ---------------------------------------------------------------------------
@@ -306,6 +368,21 @@ def cp_quadratic_d1(op: QuadOp, obs, graph: GraphD1, *,
       state: optional warm restart from a previous result's ``.state``
         (:func:`..convert.cp_state` builds one from the JAX package's).
     """
+    if bounds is not None and (la_l1 is not None or positivity):
+        raise ValueError("bounds is exclusive with la_l1/positivity")
+    if opt.cut == "device":
+        # the whole iteration on the device: the chained loop when the
+        # problem admits it, else the per-iteration device loop
+        from .cut_pursuit_chain import chain_admissible, \
+            cp_quadratic_d1_chain
+        from .cut_pursuit_device import cp_quadratic_d1_device, \
+            device_cut_supported
+        device_cut_supported(graph, obs, duplex)
+        kw = dict(la_l1=la_l1, positivity=positivity, bounds=bounds, opt=opt,
+                  state=state)
+        if chain_admissible(op, graph, opt, duplex, monitor, obs):
+            return cp_quadratic_d1_chain(op, obs, graph, **kw)
+        return cp_quadratic_d1_device(op, obs, graph, monitor=monitor, **kw)
     t0 = _time.monotonic()
     prof = StageProfiler()
     eu, ev, la_d1 = graph.host_coo()
@@ -315,8 +392,6 @@ def cp_quadratic_d1(op: QuadOp, obs, graph: GraphD1, *,
     tdtype = obs.dtype
     dtype = numpy_dtype(tdtype)
 
-    if bounds is not None and (la_l1 is not None or positivity):
-        raise ValueError("bounds is exclusive with la_l1/positivity")
     lo, hi = (-np.inf, np.inf) if bounds is None else (
         float(bounds[0]), float(bounds[1]))
     if la_l1 is not None:
@@ -464,12 +539,6 @@ def cp_quadratic_d1(op: QuadOp, obs, graph: GraphD1, *,
         if dev_route:
             rv_cap = max(bucket(num_comp), 128)
             e_cap = max(bucket(len(rg.eu)), 128)
-            n_rows = op_arr.shape[0] if kind == "dense" and not pre_at else 0
-            if not fits(rv_cap, n_rows, tdtype):
-                raise ValueError(
-                    f"reduced problem of {num_comp} components (rv_cap "
-                    f"{rv_cap}, {n_rows} dense rows, {tdtype}) exceeds the "
-                    f"solve_small kernel's shared memory")
             reu, rev, rla = pad_reduced_graph(rg, rv_cap, e_cap)
             rgraph = GraphD1.create(reu, rev, rla, num_vertices=rv_cap,
                                     dtype=tdtype, device=device)

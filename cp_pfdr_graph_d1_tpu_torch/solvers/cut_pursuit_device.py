@@ -1,0 +1,492 @@
+"""Device-resident cut-pursuit iteration for quadratic + d1 (+l1/bounds)
+(counterpart of ``cp_pfdr_graph_d1_tpu.solvers.cut_pursuit_device``).
+
+The host route (:mod:`.cut_pursuit`) brings O(E) arrays to the host every
+CP iteration.  Here the whole iteration stays on the tensors' device:
+
+* steepest cut: the certified PDHG relaxation on the full graph with the
+  active edges masked to zero weight (a zero-weight edge never constrains
+  the cut), warm-started from the previous iteration's cut.  On a stencil
+  graph it is the kernel of :mod:`..ops.mincut_fused` (its plain version
+  for CPU tensors); on a COO graph the plain loop of
+  :mod:`..maxflow.device`, on the CPU only;
+* connected components: min-label propagation to its fixpoint
+  (:mod:`..ops.components_fused` on a stencil graph,
+  :mod:`..ops.components` otherwise), compacted to first-encounter order
+  (the reference's DFS numbering, ``CP_PFDR_graph_quadratic_d1_l1.cpp:
+  570-596``);
+* contraction: a stable two-key sort of the active edges' component pairs
+  and run-length weight sums (``:607-661``), padded with inert zero-weight
+  self-loops, plus an ``eps`` self-loop on every live component (the
+  reference adds them to isolated components only; an extra eps self-loop
+  adds ``eps |x_c - x_c| = 0`` to the objective, so the minimizer is
+  unchanged);
+* reduced operator and solve: one-hot products up to ``_ONEHOT_MAX``
+  components and sorted segment sums beyond, then one whole-solve kernel
+  (:func:`.cut_pursuit._kernel_solve`: ``solve_small`` when the problem
+  fits one block's shared memory and has fewer than
+  ``SOLVE_FUSED_MIN_RV_CAP`` vertices, ``solve_fused`` otherwise), or the staged
+  PFDR loop for CPU tensors with ``pfdr.fused="auto"`` and for
+  ``pfdr.fused="off"``;
+* merge and evolution tests: elementwise on the device.
+
+Host reads per iteration: the new-edge count, the certificates, the
+component and reduced-edge counts and the evolution.  An uncertified cut is
+redone on the host push-relabel with a warning (the exactness guard of the
+JAX package), never used silently.  Run sums and segment reductions are
+deterministic (no float atomics), so a run's trajectory does not change
+between runs.
+"""
+from __future__ import annotations
+
+import time as _time
+import warnings
+
+import numpy as np
+import torch
+
+from .. import maxflow
+from ..config import CPOptions, Lipsch, numpy_dtype
+from ..graph import GraphD1
+from ..maxflow.device import _pdhg_min_cut
+from ..operators import DenseOp, DiagOp, GramOp, QuadOp
+from ..ops.components import connected_components_device
+from ..ops.components_fused import (compact_labels_device,
+                                    device_components_stencil_fused)
+from ..ops.mincut_fused import device_cut_stencil_fused
+from ..ops.power_iter import dense_operator_norm
+from ..stencil import StencilGraphD1
+from .cut_pursuit import (CPResult, CPState, _kernel_solve, _objective,
+                          _reduce_dense, _reduce_diag, _reduce_gram)
+from .cut_pursuit_common import bucket, machine_eps
+from .pfdr_quadratic import VertexProx, pfdr_quadratic_d1
+
+# above this component count the [V, rV] one-hot contractions give way to
+# sorted segment sums (the one-hot selector would take O(V rV) memory)
+_ONEHOT_MAX = 4096
+_INT_SENTINEL = 2**31 - 1
+
+
+def device_cut_supported(graph, obs, duplex: bool):
+    """Raises :class:`NotImplementedError` for a ``cut="device"`` problem
+    the port does not run."""
+    if duplex:
+        raise NotImplementedError(
+            "the duplex (two-layer ternary) device cut is not ported yet: "
+            "ROADMAP queue 1 item 6; pass cut='host' for the duplex cut")
+    if obs.is_cuda and not isinstance(graph, StencilGraphD1):
+        raise NotImplementedError(
+            "cut='device' on a CUDA device takes a StencilGraphD1: its "
+            "min-cut and components kernels are stencil kernels, and those "
+            "of the COO and banded containers are ROADMAP queue 1 item 9; "
+            "pass cut='host', or CPU tensors")
+
+
+def _direction_costs(op: QuadOp, obs, graph: GraphD1, x, active, la_l1, *,
+                     lo: float, hi: float, differentiable: bool,
+                     has_l1: bool, positivity: bool):
+    """Gradient of the smooth part + d1/l1 subgradient terms, then the one
+    or two cut cost vectors (``CP_PFDR_graph_quadratic_d1_l1.cpp:
+    339-549``)."""
+    dfs = op.grad(x, obs)
+    xu, xv = graph.gather_endpoints(x)
+    s = torch.sign(xu - xv) * graph.la_d1 * active
+    dfs = dfs + graph.edge_to_vertex_sum(s, -s)
+    if has_l1:
+        dfs = dfs + torch.sign(x) * la_l1
+    if differentiable:
+        return dfs, dfs
+    zero = x == 0
+    inf = float("inf")
+    if has_l1:
+        c1 = dfs + torch.where(zero, la_l1, 0.0)
+        if positivity:
+            c2 = torch.where(zero, inf, -dfs)
+        else:
+            c2 = -dfs + torch.where(zero, la_l1, 0.0)
+    else:
+        c1 = torch.where(x == hi, inf, dfs) if np.isfinite(hi) else dfs
+        c2 = torch.where(x == lo, inf, -dfs) if np.isfinite(lo) else -dfs
+    return c1, c2
+
+
+def _device_cut(graph: GraphD1, active, c, tol: float, it_max: int,
+                check_every: int, x0=None, z0=None):
+    """One steepest cut on the standing graph (active edges weight-masked
+    out); returns ``(sep [E] bool, gap, big, x, z)``: the separated edges,
+    the duality gap and cost scale (0-d tensors; certified when
+    ``gap <= tol * big``) and the relaxed state that warm-starts the next
+    iteration's cut (the reference reuses its max-flow graph the same way,
+    ``graph.hpp:280``)."""
+    if isinstance(graph, StencilGraphD1):
+        return device_cut_stencil_fused(graph, active, c, tol, it_max,
+                                        check_every, x0, z0)
+    w = torch.where(active, 0.0, graph.la_d1)
+    fin = torch.isfinite(c)
+    big = 1.0 + 2.0 * (w.sum() + torch.where(fin, c.abs(), 0.0).sum())
+    c_cl = torch.clamp(torch.where(fin, c, big), -big, big).to(w.dtype)
+    side, gap, _, x, z = _pdhg_min_cut(graph, w, c_cl, (tol * big).to(w.dtype),
+                                       it_max, check_every, x0, z0)
+    su, sv = graph.gather_endpoints(side)
+    return (su != sv) & ~active & (graph.la_d1 > 0), gap, big, x, z
+
+
+def _device_components(graph: GraphD1, active):
+    """Labels of the components of the inactive nonzero-weight edges,
+    compacted to first-encounter order: ``(cv int32, num_comp, firsts)``
+    with ``num_comp`` a 0-d tensor."""
+    if isinstance(graph, StencilGraphD1):
+        return device_components_stencil_fused(graph, active)
+    mask = ~active & (graph.la_d1 > 0)
+    return compact_labels_device(connected_components_device(graph, mask))
+
+
+def _contract_sort(cv, graph: GraphD1, active):
+    """Contraction, phase A: the active nonzero edges' component pairs
+    ``(lo, hi)`` sorted stably by ``lo`` then ``hi`` (two stable sorts;
+    unselected edges carry a sentinel and sort last), their weights in that
+    order, the run-start flags and the run count (a 0-d tensor)."""
+    sel = active & (graph.la_d1 > 0)
+    cu, cvv = graph.gather_endpoints(cv)
+    lo = torch.where(sel, torch.minimum(cu, cvv), _INT_SENTINEL)
+    hi = torch.where(sel, torch.maximum(cu, cvv), _INT_SENTINEL)
+    order = torch.sort(hi, stable=True).indices
+    order = order[torch.sort(lo[order], stable=True).indices]
+    lo, hi = lo[order], hi[order]
+    w = torch.where(sel, graph.la_d1, 0.0)[order]
+    first = torch.ones(1, dtype=torch.bool, device=lo.device)
+    flags = (torch.cat([first, (lo[1:] != lo[:-1]) | (hi[1:] != hi[:-1])])
+             & (lo != _INT_SENTINEL))
+    return lo, hi, w, flags, flags.sum()
+
+
+def _contract_pad(lo, hi, w, flags, num_comp: int, eps: float,
+                  rv_cap: int, re_cap: int):
+    """Contraction, phase B: run-length weight sums padded to ``re_cap``
+    edges with zero-weight self-loops spread over the components, then an
+    ``eps`` self-loop on every live component (see the module docstring).
+    Returns int64 ``reu, rev`` and ``rla`` of ``re_cap + rv_cap`` edges."""
+    e = lo.shape[0]
+    starts = torch.nonzero(flags).reshape(-1)
+    n_runs = starts.numel()
+    offsets = torch.cat([starts, starts.new_full((1,), e)])
+    wsum = torch.segment_reduce(w, "sum", offsets=offsets)
+    iota_e = torch.arange(re_cap, device=lo.device)
+    spread = iota_e % rv_cap
+    pad = re_cap - n_runs
+    reu = torch.cat([lo[starts].to(torch.int64), spread[n_runs:]])
+    rev = torch.cat([hi[starts].to(torch.int64), spread[n_runs:]])
+    rla = torch.cat([wsum, w.new_zeros(pad)])
+    iota = torch.arange(rv_cap, device=lo.device)
+    eps_la = torch.where(iota < num_comp, eps, 0.0).to(w.dtype)
+    return (torch.cat([reu, iota]), torch.cat([rev, iota]),
+            torch.cat([rla, eps_la]))
+
+
+def _vertex_runs(cv, rv_cap: int):
+    """Vertices sorted stably by component label, and the offsets of the
+    runs (labels are contiguous first-encounter ints, so run ``i`` is
+    component ``i``; empty runs pad to ``rv_cap``)."""
+    order = torch.sort(cv, stable=True).indices
+    counts = torch.bincount(cv.to(torch.int64), minlength=rv_cap)
+    offsets = torch.zeros(rv_cap + 1, dtype=torch.int64, device=cv.device)
+    offsets[1:] = torch.cumsum(counts, 0)
+    return order, offsets
+
+
+def _run_sums(values, cv, rv_cap: int):
+    """Per-component sums of ``values`` ([V] or [V, N]) as deterministic
+    segment reductions over the vertices sorted by component."""
+    order, offsets = _vertex_runs(cv, rv_cap)
+    return torch.segment_reduce(values[order], "sum", offsets=offsets)
+
+
+def _reduce_vertex_terms(cv, x, la_l1, firsts, rv_cap: int):
+    """Reduced l1 weights (summed per component) and the warm start (one
+    representative per component, padded with ``x[0]`` as in the JAX
+    package)."""
+    r_la_l1 = _run_sums(la_l1, cv, rv_cap)
+    reps = torch.zeros(rv_cap, dtype=torch.int64, device=cv.device)
+    first_idx = torch.nonzero(firsts).reshape(-1)
+    reps[:first_idx.numel()] = first_idx
+    return r_la_l1, x[reps]
+
+
+def _segment_reduce_dense(a, obs, cv, rv_cap: int):
+    """Dense reduction beyond the one-hot cap: per-component column sums of
+    ``A`` by segment sums over the sorted vertices, O(V N) memory, never
+    premultiplied (the [rV, rV] Gram would not fit, and the reference's
+    premultiplication rule never picks it at rV >> N)."""
+    ra = _run_sums(a.T, cv, rv_cap).T                      # [N, rv_cap]
+    cn = torch.sqrt((ra * ra).sum(dim=0))
+    cn_safe = torch.where(cn > 0, cn, torch.ones_like(cn))
+    c = dense_operator_norm(ra / cn_safe)
+    return ra, obs, cn * cn * c
+
+
+def _segment_reduce_diag(diag, obs, cv, rv_cap: int):
+    """Diagonal reduction beyond the one-hot cap, by segment sums."""
+    rdiag = _run_sums(diag, cv, rv_cap)
+    return rdiag, _run_sums(obs, cv, rv_cap), rdiag
+
+
+def _device_merge(graph: GraphD1, x, active, eps: float, dif_tol: float):
+    """Deactivates active edges whose endpoint components are relatively
+    equal (``CP_PFDR_graph_quadratic_d1_l1.cpp:863-886``)."""
+    xu, xv = graph.gather_endpoints(x)
+    d = (xu - xv).abs()
+    amax = torch.maximum(xu.abs(), xv.abs())
+    rel = torch.where(amax > eps, d / torch.clamp(amax, min=eps), d / eps)
+    return active & ~(rel <= dif_tol)
+
+
+def _evolution(x, x_prev, eps: float):
+    delta = x - x_prev
+    num = torch.dot(delta, delta)
+    den = torch.dot(x, x)
+    return torch.where(den > eps, num / den, num / eps)
+
+
+def _reduced_problem(op: QuadOp, obs, cv, num_comp: int, rv_cap: int,
+                     pfdr_it_prev: int, pre_at_allowed: bool = True):
+    """Reduced operator, observation and DIAG Lipschitz metric on the
+    partition ``cv`` (``CP_PFDR_graph_quadratic_d1_l1.cpp:663-836``):
+    ``(r_op, mat, ry, lipsch)``."""
+    if isinstance(op, DenseOp):
+        n_obs = op.a.shape[0]
+        pre_at = (pre_at_allowed and rv_cap <= _ONEHOT_MAX
+                  and num_comp < (2 * n_obs * pfdr_it_prev)
+                  // (n_obs + pfdr_it_prev))
+        if rv_cap <= _ONEHOT_MAX:
+            mat, ry, lipsch = _reduce_dense(op.a, obs, cv, rv_cap, pre_at)
+        else:
+            mat, ry, lipsch = _segment_reduce_dense(op.a, obs, cv, rv_cap)
+        return (GramOp(mat) if pre_at else DenseOp(mat)), mat, ry, lipsch
+    if isinstance(op, GramOp):
+        if rv_cap > _ONEHOT_MAX:
+            raise ValueError(
+                f"premultiplied (A^t A) mode cannot contract to {num_comp} "
+                "components (the [rV, rV] reduced Gram does not fit); pass "
+                "the dense operator instead")
+        mat, ry, lipsch = _reduce_gram(op.gram, obs, cv, rv_cap)
+        return GramOp(mat), mat, ry, lipsch
+    diag = (op.diag if isinstance(op, DiagOp)
+            else torch.ones(cv.shape[0], dtype=obs.dtype, device=obs.device))
+    if rv_cap <= _ONEHOT_MAX:
+        rdiag, ry, lipsch = _reduce_diag(diag, obs, cv, rv_cap)
+    else:
+        rdiag, ry, lipsch = _segment_reduce_diag(diag, obs, cv, rv_cap)
+    return DiagOp(rdiag), rdiag, ry, lipsch
+
+
+def contract(graph: GraphD1, active, eps: float):
+    """Components and contracted graph of the current active set:
+    ``(cv, num_comp, firsts, rgraph)`` with ``rgraph`` a :class:`GraphD1`
+    over ``bucket(num_comp)`` vertices on the device (two host reads: the
+    component and the reduced-edge counts)."""
+    cv, num_comp_t, firsts = _device_components(graph, active)
+    lo_s, hi_s, w_s, flags, re_count = _contract_sort(cv, graph, active)
+    num_comp, re_count = (int(v) for v in torch.stack(
+        [num_comp_t.to(torch.int64), re_count.to(torch.int64)]).cpu())
+    rv_cap = bucket(num_comp)
+    reu, rev, rla = _contract_pad(lo_s, hi_s, w_s, flags, num_comp, eps,
+                                  rv_cap, bucket(re_count))
+    return cv, num_comp, firsts, GraphD1(reu, rev, rla, rv_cap)
+
+
+def problem_setup(num_v: int, obs, la_l1, positivity: bool, bounds):
+    """``(la_l1_dev, has_l1, lo, hi, differentiable, vprox)`` of a device
+    solve: the l1 weights as a [V] tensor (zeros under positivity alone)."""
+    lo, hi = (-np.inf, np.inf) if bounds is None else (
+        float(bounds[0]), float(bounds[1]))
+    has_l1 = la_l1 is not None or positivity
+    if la_l1 is not None:
+        if isinstance(la_l1, torch.Tensor):
+            la_l1 = la_l1.detach().cpu().numpy()
+        la_l1_dev = torch.as_tensor(
+            np.broadcast_to(np.asarray(la_l1, numpy_dtype(obs.dtype)),
+                            (num_v,)).copy(), device=obs.device)
+    else:
+        la_l1_dev = torch.zeros(num_v, dtype=obs.dtype, device=obs.device)
+    differentiable = not has_l1 and not (np.isfinite(lo) or np.isfinite(hi))
+    if bounds is not None:
+        vprox = VertexProx(kind="bounds", lo=lo, hi=hi)
+    elif has_l1:
+        vprox = VertexProx(kind="l1", positivity=positivity)
+    else:
+        vprox = VertexProx()
+    return la_l1_dev, has_l1, lo, hi, differentiable, vprox
+
+
+def scalar_init(op: QuadOp, obs, num_v: int, la_l1_dev, has_l1: bool,
+                positivity: bool, bounds, lo: float, hi: float) -> float:
+    """Value of the single-component start (the scalar prox solve,
+    ``CP_PFDR_graph_quadratic_d1_l1.cpp:66-175``)."""
+    ry1, raa1 = (float(v) for v in op.ones_image(num_v, obs))
+    if bounds is not None:
+        return min(max(ry1 / raa1, lo), hi)
+    rl1 = float(la_l1_dev.sum()) if has_l1 else 0.0
+    if ry1 > rl1:
+        return (ry1 - rl1) / raa1
+    if not positivity and ry1 < -rl1:
+        return (ry1 + rl1) / raa1
+    return 0.0
+
+
+def _host_cut_fallback(graph: GraphD1, active, c1, c2):
+    """Host push-relabel cuts for one CP iteration (certificate failure)."""
+    eu, ev, la = graph.host_coo()
+    act = active.cpu().numpy()
+    inact = ~act & (la > 0)
+    ieu, iev, ila = eu[inact], ev[inact], la[inact]
+
+    def cut(c):
+        side = maxflow.min_cut(graph.num_vertices, ieu, iev, ila,
+                               c.cpu().numpy().astype(np.float64))
+        return side[ieu] != side[iev]
+
+    sep_i = cut(c1)
+    if c2 is not None:
+        sep_i = sep_i | cut(c2)
+    sep = np.zeros(graph.num_edges, bool)
+    sep[np.nonzero(inact)[0][sep_i]] = True
+    return torch.as_tensor(sep, device=active.device)
+
+
+def cp_quadratic_d1_device(op: QuadOp, obs, graph: GraphD1, *,
+                           la_l1=None, positivity: bool = False,
+                           bounds=None, opt: CPOptions = CPOptions(),
+                           monitor: bool = False,
+                           state: CPState | None = None) -> CPResult:
+    """Device-resident cut-pursuit solve (same contract as
+    :func:`.cut_pursuit.cp_quadratic_d1`); see the module docstring."""
+    t0 = _time.monotonic()
+    num_v = graph.num_vertices
+    device = obs.device
+    dtype = numpy_dtype(obs.dtype)
+    la_l1_dev, has_l1, lo, hi, differentiable, vprox = problem_setup(
+        num_v, obs, la_l1, positivity, bounds)
+    eps = machine_eps(dtype, opt.dif_tol)
+    dif_tol2 = opt.dif_tol * opt.dif_tol
+    # reduced solves: one whole-solve kernel on a CUDA device (its plain
+    # version on the CPU with fused="on"), the staged loop otherwise
+    kernel_route = (opt.pfdr.fused != "off"
+                    and (obs.is_cuda or opt.pfdr.fused == "on"))
+    if kernel_route:
+        for name, value in (("dif_rcd", opt.pfdr.dif_rcd),
+                            ("verbose", opt.pfdr.verbose)):
+            if value:
+                raise NotImplementedError(
+                    f"PFDROptions.{name}={value!r} is not supported by the "
+                    f"whole-solve kernels; pass PFDROptions(fused='off') to "
+                    f"solve the reduced problems in the staged loop")
+
+    if state is None:
+        x1 = scalar_init(op, obs, num_v, la_l1_dev, has_l1, positivity,
+                         bounds, lo, hi)
+        active = torch.zeros(graph.num_edges, dtype=torch.bool,
+                             device=device)
+        cv = torch.zeros(num_v, dtype=torch.int32, device=device)
+        x_full = torch.full((num_v,), x1, dtype=obs.dtype, device=device)
+    else:
+        active = torch.as_tensor(np.asarray(state.active, bool),
+                                 device=device)
+        cv = torch.as_tensor(np.asarray(state.cv, np.int32), device=device)
+        x_full = torch.as_tensor(np.asarray(state.rx, dtype)[state.cv],
+                                 device=device)
+
+    def mon_objective(x):
+        return float(_objective(op, obs, x, graph,
+                                la_l1_dev if has_l1 else None))
+
+    times = [0.0]
+    objs = [mon_objective(x_full)] if monitor else []
+    difs = []
+    x_prev = x_full
+    pfdr_it_prev = opt.pfdr.it_max
+    it = 0
+    dif = max(dif_tol2, 1.0)
+    num_comp = 1
+    cut1 = cut2 = (None, None)     # PDHG warm starts per direction
+    chk = min(250, opt.cut_it_max)
+    while it < opt.it_max and dif >= dif_tol2:
+        # -- steepest cut(s) (:337-549) --------------------------------------
+        c1, c2 = _direction_costs(op, obs, graph, x_full, active, la_l1_dev,
+                                  lo=lo, hi=hi,
+                                  differentiable=differentiable,
+                                  has_l1=has_l1, positivity=positivity)
+        sep, gap1, big1, *cut1 = _device_cut(graph, active, c1, opt.cut_tol,
+                                             opt.cut_it_max, chk, *cut1)
+        checks = [gap1, big1]
+        if not differentiable:
+            sep2, gap2, big2, *cut2 = _device_cut(
+                graph, active, c2, opt.cut_tol, opt.cut_it_max, chk, *cut2)
+            checks += [gap2, big2]
+            sep = sep | sep2
+        *gaps, n_new = torch.stack([v.to(torch.float64) for v in checks]
+                                   + [sep.sum().to(torch.float64)]).tolist()
+        if not all(gap <= opt.cut_tol * big
+                   for gap, big in zip(gaps[::2], gaps[1::2])):
+            # exactness guard: redo this iteration's cuts on the host
+            warnings.warn("falling back to the host min-cut solver for this "
+                          "cut", UserWarning, stacklevel=2)
+            sep = _host_cut_fallback(graph, active, c1,
+                                     None if differentiable else c2)
+            n_new = int(sep.sum())
+        active = active | sep
+        if n_new == 0:  # nothing to recompute (:556-563)
+            difs.append(0.0)
+            dif = 0.0
+            it += 1
+            times.append(_time.monotonic() - t0)
+            if monitor:
+                objs.append(objs[-1])
+            continue
+
+        # -- contraction (:568-661) -----------------------------------------
+        cv, num_comp, firsts, rgraph = contract(graph, active, eps)
+        rv_cap = rgraph.num_vertices
+        r_la_l1, rx0 = _reduce_vertex_terms(cv, x_full, la_l1_dev, firsts,
+                                            rv_cap)
+        r_op, mat, ry, lipsch = _reduced_problem(op, obs, cv, num_comp,
+                                                 rv_cap, pfdr_it_prev)
+
+        # -- reduced PFDR solve (:842-859) -----------------------------------
+        if kernel_route:
+            rx, it_d = _kernel_solve(
+                r_op, mat, ry, lipsch, rgraph,
+                r_la_l1 if has_l1 else None, rx0, num_comp, opt.pfdr.it_max,
+                vprox=vprox, rho=float(opt.pfdr.rho),
+                dif_tol=float(opt.pfdr.dif_tol))
+            pfdr_it_prev = max(int(it_d), 1)
+        else:
+            res = pfdr_quadratic_d1(
+                r_op, ry, rgraph, la_l1=r_la_l1 if has_l1 else None,
+                vprox=vprox, lipsch=lipsch, ltype=Lipsch.DIAG, x0=rx0,
+                opt=opt.pfdr)
+            rx = res.x
+            pfdr_it_prev = max(res.it, 1)
+        x_full = rx[cv.to(torch.int64)]
+
+        # -- merge + evolution (:863-975) ------------------------------------
+        active = _device_merge(graph, x_full, active, eps, opt.dif_tol)
+        dif = float(_evolution(x_full, x_prev, eps))
+        difs.append(dif)
+        x_prev = x_full
+        it += 1
+        times.append(_time.monotonic() - t0)
+        if monitor:
+            objs.append(mon_objective(x_full))
+        if opt.verbose:
+            print(f"CP it {it} (device): {num_comp} components, "
+                  f"{int(active.sum())} active edges, dif {dif:.3g}, "
+                  f"PFDR it {pfdr_it_prev}")
+
+    cv_host = cv.cpu().numpy().astype(np.int32)
+    _, reps = np.unique(cv_host, return_index=True)
+    rx_host = x_full.cpu().numpy()[reps].astype(dtype)
+    return CPResult(
+        cv=cv_host, rx=rx_host, it=it, time=np.asarray(times),
+        obj=np.asarray(objs) if monitor else np.zeros(0, dtype),
+        dif=np.asarray(difs),
+        state=CPState(active=active.cpu().numpy(), cv=cv_host, rx=rx_host))

@@ -118,6 +118,21 @@ class StencilGraphD1(GraphD1):
             out = out + torch.roll(vv[k], (dy, dx), dims=(0, 1))
         return out.reshape((self.num_vertices,) + rest)
 
+    def edge_to_vertex_min(self, vals_u, vals_v, init):
+        """Roll-based min-reduction twin of :meth:`edge_to_vertex_sum`.
+        Masked edges (the zero-weight slots of non-wrapping axes included)
+        must carry ``init`` so that their wrapped-around positions are
+        inert."""
+        f = len(self.shifts)
+        h, w = self.field_shape
+        rest = tuple(vals_u.shape[1:])
+        vu = vals_u.reshape((f, h, w) + rest)
+        vv = vals_v.reshape((f, h, w) + rest)
+        out = torch.clamp(vu.amin(dim=0), max=init)
+        for k, (dy, dx) in enumerate(self.shifts):
+            out = torch.minimum(out, torch.roll(vv[k], (dy, dx), dims=(0, 1)))
+        return out.reshape((self.num_vertices,) + rest)
+
     # -- fused iteration ------------------------------------------------------
 
     def fused_iteration(self, x, grad, pre, zu, zv, rho: float, vprox):

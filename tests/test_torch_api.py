@@ -167,10 +167,16 @@ def test_import_leaves_jax_out():
 
 
 def test_unported_routes_raise():
+    # the device cut and the chained loop are ported; the duplex device cut
+    # is what stays open of queue 1 item 6
+    assert T.CPOptions(cut="device", chain="on").chain == "on"
     with pytest.raises(NotImplementedError, match="queue 1 item 6"):
-        T.CPOptions(cut="device")
-    with pytest.raises(NotImplementedError, match="queue 1 item 7"):
-        T.CPOptions(chain="on")
+        T.solvers.cut_pursuit.cp_quadratic_d1(
+            T.DenseOp(torch.ones((2, 3), dtype=torch.float64)),
+            torch.ones(2, dtype=torch.float64),
+            T.GraphD1.create([0], [1], [1.0], num_vertices=3,
+                             dtype=torch.float64, device="cpu"),
+            la_l1=0.1, duplex=True, opt=T.CPOptions(cut="device"))
     with pytest.raises(NotImplementedError, match="queue 1 item 8"):
         tapi.cp_loss_d1_simplex(np.ones((4, 2)), 1.0, [0], [1], [1.0])
     with pytest.raises(NotImplementedError, match="queue 1 item 9"):
