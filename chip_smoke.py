@@ -27,7 +27,16 @@ It imports nothing of JAX.  Phases, one or more lines each:
    operator, and the EEG grid with every vertex its own component and the
    dense operator; then ``solve_small`` against ``solve_fused`` on the same
    reduced problems (the crossover behind ``SOLVE_FUSED_MIN_RV_CAP``);
-8. the main paths, each with the launch counters set to 0 just before it
+8. ``stencil_fused_simplex`` against its plain version at 140 x 140,
+   F = 2, K = 4 for four losses (one iteration in float64 and float32, a
+   400-iteration float64 loop of the solver's kernel loop), the kernel loop
+   with monitoring, progress lines and reconditioning against the staged
+   loop, and the time per launch of both;
+9. ``mincut_fused`` and ``components_fused`` against their plain versions
+   on the inputs the multi-label cut-pursuit path gives them (the calls of
+   an expansion cut and a components call recorded from its device loop
+   at 512 x 512), the cut in float32 and float64;
+10. the main paths, each with the launch counters set to 0 just before it
    and read just after: ``pfdr_quadratic_d1`` on the EEG-scale stencil
    problem (3000 iterations in float32); ``api.cp_quadratic_d1_l1`` on it
    (host cut) in float32, held against the port's own float64 run on the
@@ -35,7 +44,12 @@ It imports nothing of JAX.  Phases, one or more lines each:
    (``bench.py``'s options), held against the same float64 run; and the
    524k-vertex TV denoising problem of ``bench.py`` through the
    per-iteration device loop, held against its own float64 run on the card;
-9. where the time goes (``torch.profiler``).
+   the multi-label PFDR of ``bench.py:bench_simplex`` (140 x 140, K = 4,
+   3000 iterations in float32, held against float64 on the card); the
+   multi-label cut-pursuit of ``bench.py:bench_cut_pursuit_simplex``
+   (512 x 512, K = 4, ``cut="device"``, held against float64 on the card;
+   an expansion cut that leaves the card fails the run);
+11. where the time goes (``torch.profiler``).
 
 The line before the last is the JSON kernel report; the last line is the
 JSON result.  Any failed check raises, and the script then exits with a
@@ -47,9 +61,11 @@ import functools
 import io
 import json
 import os
+import re
 import subprocess
 import sys
 import time
+import warnings
 
 import numpy as np
 
@@ -537,12 +553,15 @@ def counters():
     """Launch counter of each kernel wrapper, by kernel name."""
     from cp_pfdr_graph_d1_tpu_torch.ops import (components_fused,
                                                 mincut_fused, solve_fused,
-                                                solve_small, stencil_fused)
+                                                solve_small, stencil_fused,
+                                                stencil_fused_simplex)
     return {"stencil_fused": stencil_fused.fused_stencil_iteration,
             "solve_small": solve_small.fused_pfdr_solve_small,
             "mincut_fused": mincut_fused.fused_pdhg_min_cut,
             "components_fused": components_fused.fused_components,
-            "solve_fused": solve_fused.fused_pfdr_solve}
+            "solve_fused": solve_fused.fused_pfdr_solve,
+            "stencil_fused_simplex":
+                stencil_fused_simplex.fused_stencil_simplex_iteration}
 
 
 def reset_counts():
@@ -937,6 +956,494 @@ def phase_cp_device(device="cuda"):
     return t_best
 
 
+# ---------------------------------------------------------------------------
+# slice 3: the multi-label (simplex) family
+# ---------------------------------------------------------------------------
+
+K_SIMPLEX = 4
+SIMPLEX_CASES = (("al=0", 0.0, None, False), ("al=1 la_f", 1.0, 0.8, False),
+                 ("al=0.5", 0.5, None, False),
+                 ("al=0.5 labels", 0.5, None, True))
+SIDE_262K = 512   # bench.py:bench_cut_pursuit_simplex, V = 262,144
+# nonzero-weight edges of the 140 x 140 grid
+N_EDGES_EEG = 2 * V_SIDE * (V_SIDE - 1)
+
+
+def simplex_q():
+    """``bench.py:bench_simplex``'s observations: Dirichlet(0.7) rows of
+    K = 4 labels on the 140 x 140 grid (seed 11)."""
+    r = np.random.default_rng(11)
+    return r.dirichlet(np.full(K_SIMPLEX, 0.7),
+                       size=V_SIDE * V_SIDE).astype(np.float32)
+
+
+def simplex_problem(dtype, device, la_f):
+    """``bench_simplex``'s stencil (140 x 140, F = 2, weights 0.5), its
+    observations and the loss weights ``la_f`` (a constant, or None)."""
+    import torch
+    from cp_pfdr_graph_d1_tpu_torch import StencilGraphD1
+    g = StencilGraphD1.create((V_SIDE, V_SIDE), {(0, 1): 0.5, (1, 0): 0.5},
+                              dtype=dtype, device=device)
+    q = torch.as_tensor(simplex_q(), dtype=dtype, device=device)
+    laf = (torch.full((g.num_vertices,), la_f, dtype=dtype, device=device)
+           if la_f is not None else None)
+    return g, q, laf
+
+
+def simplex_planes(dtype, device, al, la_f, label_mode, seed=3):
+    """Kernel inputs of one multi-label iteration on ``simplex_problem``:
+    the preconditioner of the problem, a seeded random iterate on the
+    simplex and random auxiliary pairs, as ``[K, H, W]`` and
+    ``[F, K, H, W]`` planes."""
+    import torch
+    from cp_pfdr_graph_d1_tpu_torch.solvers import pfdr_simplex as ps
+    h = w = V_SIDE
+    k = K_SIMPLEX
+    g, q, laf = simplex_problem(dtype, device, la_f)
+    f = len(g.shifts)
+    t = lambda z: torch.as_tensor(z, dtype=dtype, device=device)  # noqa
+    r = np.random.default_rng(seed)
+    p = t(r.dirichlet(np.ones(k), size=h * w))
+    pre = ps.initial_precondition_simplex(al, laf, g, q, p, 1.5)
+    zu0, zv0 = g.gather_endpoints(p)
+    zu = zu0 + t(0.05 * r.standard_normal(zu0.shape))
+    zv = zv0 + t(0.05 * r.standard_normal(zv0.shape))
+
+    def tv(a):
+        return a.T.reshape(-1, h, w).contiguous()
+
+    def te(a):
+        return (a.reshape(f, h * w, k).permute(0, 2, 1)
+                .reshape(f, k, h, w).contiguous())
+
+    laf3 = (laf.reshape(1, h, w).contiguous() if laf is not None
+            else torch.zeros((1, h, w), dtype=dtype, device=device))
+    prev = (tv(torch.argmax(p, dim=1).to(dtype)[:, None]) if label_mode
+            else tv(p))
+    args = ((tv(p), tv(q), laf3, tv(pre.ga), tv(pre.ga_proj), prev)
+            + tuple(te(a) for a in (zu, zv, pre.wu, pre.wv, pre.w_d1u,
+                                    pre.w_d1v, pre.th_d1)))
+    kw = dict(shifts=g.shifts, rho=1.5, al=al, has_laf=la_f is not None,
+              label_mode=label_mode)
+    return args, kw
+
+
+def simplex_loop(dtype, device, al, la_f, label_mode, plain):
+    """400 iterations of the solver's kernel loop
+    (``pfdr_simplex._simplex_fused_loop``) on ``simplex_problem`` from the
+    uniform start, each iteration the kernel's wrapper or, with ``plain``,
+    its plain version, both on the card.  Returns ``(p, iterations)``."""
+    import torch
+    from cp_pfdr_graph_d1_tpu_torch import PFDROptions
+    from cp_pfdr_graph_d1_tpu_torch.ops import stencil_fused_simplex as sfs
+    from cp_pfdr_graph_d1_tpu_torch.solvers import pfdr_simplex as ps
+    g, q, laf = simplex_problem(dtype, device, la_f)
+    p0 = torch.full_like(q, 1.0 / K_SIMPLEX)
+    pre = ps.initial_precondition_simplex(al, laf, g, q, p0, 1.5)
+    opt = PFDROptions(rho=1.5, dif_tol=1.0 if label_mode else 1e-9,
+                      it_max=400)
+    step = (functools.partial(sfs.stencil_simplex_iteration_plain,
+                              shifts=g.shifts) if plain else None)
+    res = ps._simplex_fused_loop(g, q, p0, laf, pre, al=al, opt=opt,
+                                 has_laf=laf is not None,
+                                 label_mode=label_mode, step=step)
+    return res.p, res.it
+
+
+def phase_stencil_simplex(device="cuda"):
+    """``stencil_fused_simplex`` against its plain version on the card at
+    140 x 140, F = 2, K = 4, for four losses: one iteration (float64 within
+    1e-12, float32 within 1e-5 on p, zu, zv, and the evolution sum
+    relative to max(1, |plain|); equal labels and counts in float64, at
+    most 0.1 % of the vertices apart in float32, where FMA contraction may
+    flip a near tie), then a 400-iteration float64 loop of each with equal
+    iteration counts.  Times: CUDA events and torch.profiler device time
+    per launch, float32, the main path's case (al = 1, no la_f)."""
+    import torch
+    from cp_pfdr_graph_d1_tpu_torch.ops import stencil_fused_simplex as sfs
+    tols = {torch.float64: 1e-12, torch.float32: 1e-5}
+    errs = {torch.float64: 0.0, torch.float32: 0.0}
+    v = V_SIDE * V_SIDE
+    for dtype in (torch.float64, torch.float32):
+        for name, al, la_f, label_mode in SIMPLEX_CASES:
+            args, kw = simplex_planes(dtype, device, al, la_f, label_mode)
+            out_k = sfs.fused_stencil_simplex_iteration(*args, **kw)
+            out_p = sfs.stencil_simplex_iteration_plain(*args, **kw)
+            if device == "cuda":
+                check(out_k[0].is_cuda, "kernel output not on the card")
+            err = max(max_err(out_k[i], out_p[i]) for i in (0, 2, 3))
+            tol = tols[dtype]
+            if label_mode:
+                n_lab = int((out_k[1] != out_p[1]).sum())
+                d_cnt = abs(float(out_k[4]) - float(out_p[4]))
+                allowed = 0 if dtype == torch.float64 else v // 1000
+                check(n_lab <= allowed and d_cnt <= allowed,
+                      f"stencil_fused_simplex {dtype} {name}: {n_lab} "
+                      f"labels and count {d_cnt} apart (allowed {allowed})")
+                rel = d_cnt
+                extra = (f"labels apart {n_lab}, counts {float(out_k[4]):.0f}"
+                         f" vs {float(out_p[4]):.0f}")
+            else:
+                err = max(err, max_err(out_k[1], out_p[1]))
+                rel = (max_err(out_k[4], out_p[4])
+                       / max(1.0, abs(float(out_p[4]))))
+                check(rel <= tol, f"stencil_fused_simplex {dtype} {name}: "
+                      f"sum rel err {rel:.3g} > {tol}")
+                extra = f"evolution sum rel err {rel:.3e}"
+            check(err <= tol, f"stencil_fused_simplex {dtype} {name}: "
+                  f"p/zu/zv err {err:.3g} > {tol}")
+            errs[dtype] = max(errs[dtype], err)
+            line = (f"[stencil_fused_simplex] {str(dtype)[6:]} {name:13s} "
+                    f"one iteration: p/zu/zv max|kernel-plain| = {err:.3e} "
+                    f"(tol {tol:g}); {extra}")
+            if dtype == torch.float64:
+                pk, itk = simplex_loop(dtype, device, al, la_f, label_mode,
+                                       plain=False)
+                pp, itp = simplex_loop(dtype, device, al, la_f, label_mode,
+                                       plain=True)
+                lerr = max_err(pk, pp)
+                check(itk == itp, f"stencil_fused_simplex {name}: loop of "
+                      f"{itk} iterations vs plain {itp}")
+                line += (f"; 400-iteration loop: {itk} iterations (plain "
+                         f"{itp}), p max|kernel-plain| {lerr:.3e}")
+            print(line, flush=True)
+    # monitoring, progress lines and reconditioning between the kernel's
+    # launches, against the staged loop on the card
+    from cp_pfdr_graph_d1_tpu_torch import PFDROptions, pfdr_loss_d1_simplex
+    g, q, _ = simplex_problem(torch.float64, device, None)
+    runs = {}
+    for fused in ("on", "off"):
+        opt = PFDROptions(rho=1.5, dif_tol=1e-9, it_max=300, dif_rcd=1e-2,
+                          cond_min=1e-2, verbose=100, fused=fused)
+        with contextlib.redirect_stdout(io.StringIO()) as out:
+            runs[fused] = pfdr_loss_d1_simplex(g, q, al=0.5, opt=opt,
+                                               monitor=True)
+        runs[fused + " lines"] = out.getvalue().count("PFDR iteration")
+    on, off = runs["on"], runs["off"]
+    it = on.it
+    obj_rel = float(((on.obj[:it + 1] - off.obj[:it + 1]).abs()
+                     / off.obj[:it + 1].abs()).max())
+    p_err = max_err(on.p, off.p)
+    line = (f"[stencil_fused_simplex] float64 al=0.5 monitor, verbose 100, "
+            f"dif_rcd 1e-2 through the kernel loop: {it} iterations (staged "
+            f"loop {off.it}), objective trace rel err {obj_rel:.3e}, p "
+            f"max|kernel loop - staged| {p_err:.3e}, {runs['on lines']} "
+            f"progress lines (staged {runs['off lines']})")
+    print(line, flush=True)
+    check(it == off.it and obj_rel <= 1e-10 and p_err <= F64_TOL
+          and runs["on lines"] == runs["off lines"], line)
+    times = {}
+    if device == "cuda":
+        args, kw = simplex_planes(torch.float32, device, 1.0, None, False)
+
+        def kern():
+            return sfs.fused_stencil_simplex_iteration(*args, **kw)
+
+        def plain():
+            return sfs.stencil_simplex_iteration_plain(*args, **kw)
+
+        times["ms"] = cuda_ms(kern, 500)
+        times["plain_ms"] = cuda_ms(plain, 200)
+        dev_k, _, _ = device_profile(kern, 200)
+        dev_p, per_p, _ = device_profile(plain, 200)
+        times["device_us"], times["plain_device_us"] = dev_k, dev_p
+        print(f"[stencil_fused_simplex] float32 {V_SIDE}x{V_SIDE} F=2 "
+              f"K={K_SIMPLEX} al=1, per call: kernel {times['ms'] * 1e3:.2f}"
+              f" us between CUDA events ({dev_k:.2f} us of device time, 2 "
+              f"kernels), plain {times['plain_ms'] * 1e3:.2f} us "
+              f"({dev_p:.2f} us of device time, {len(per_p)} distinct "
+              f"kernels)", flush=True)
+    return errs, times
+
+
+def pfdr_simplex_solve(dtype, device, iters, fused="auto"):
+    """``bench_simplex``'s solve: al = 1, rho = 1.5, dif_tol = 0."""
+    from cp_pfdr_graph_d1_tpu_torch import PFDROptions, pfdr_loss_d1_simplex
+    g, q, _ = simplex_problem(dtype, device, None)
+    return pfdr_loss_d1_simplex(
+        g, q, al=1.0, opt=PFDROptions(rho=1.5, dif_tol=0.0, it_max=iters,
+                                      fused=fused))
+
+
+def simplex_reference(device="cuda", iters=3000):
+    """The float64 solve on the card that the pfdr-simplex path is held
+    against (run before the path's counted window)."""
+    import torch
+    return pfdr_simplex_solve(torch.float64, device, iters).p.cpu()
+
+
+def phase_pfdr_simplex(p64, device="cuda", iters=3000):
+    """Main path: ``pfdr_loss_d1_simplex`` on ``bench_simplex``'s problem,
+    float32, through ``stencil_fused_simplex``; max |p - p64| <= 1e-3."""
+    import torch
+    from cp_pfdr_graph_d1_tpu_torch.ops import stencil_fused_simplex as sfs
+    before = sfs.fused_stencil_simplex_iteration.launches
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = pfdr_simplex_solve(torch.float32, device, iters)
+    p = res.p.cpu()
+    dt = time.perf_counter() - t0
+    grew = sfs.fused_stencil_simplex_iteration.launches - before
+    check(grew == iters, f"stencil_fused_simplex launched {grew} times in a "
+          f"{iters}-iteration solve")
+    check(res.it == iters and bool(torch.isfinite(p).all())
+          and p.shape == (V_SIDE * V_SIDE, K_SIMPLEX),
+          "multi-label PFDR result not finite, short or misshapen")
+    err = max_err(p, p64)
+    print(f"[pfdr-simplex] float32 {V_SIDE}x{V_SIDE} K={K_SIMPLEX}, {iters} "
+          f"iterations through stencil_fused_simplex: {dt * 1e6 / iters:.2f}"
+          f" us/iteration, {N_EDGES_EEG * iters / dt:.4g} edge-updates/s "
+          f"(launches +{grew}); max|p - p float64 on the card| {err:.3e} "
+          f"(tol 1e-3); row sums within "
+          f"{float((p.double().sum(1) - 1).abs().max()):.2e} of 1",
+          flush=True)
+    check(err <= 1e-3, f"multi-label PFDR float32 vs float64: {err:.3g}")
+    short = 300
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pfdr_simplex_solve(torch.float32, device, short, fused="off").p.cpu()
+    dt_staged = time.perf_counter() - t0
+    print(f"[pfdr-simplex] staged loop (no kernel), {short} iterations: "
+          f"{dt_staged * 1e6 / short:.2f} us/iteration", flush=True)
+    return dt * 1e6 / iters
+
+
+def cp_simplex_problem():
+    """``bench.py:bench_cut_pursuit_simplex``'s problem: a 512 x 512 grid of
+    four quadrant labels, 35 % of the rows replaced by Dirichlet(0.8) noise
+    (seed 17), float32."""
+    side, k = SIDE_262K, K_SIMPLEX
+    v = side * side
+    idx = np.arange(v).reshape(side, side)
+    r = np.random.default_rng(17)
+    labels = (idx // (side // 2) % 2 * 2
+              + (idx % side) // (side // 2) % 2).ravel()
+    q = np.full((v, k), 0.05, np.float32)
+    q[np.arange(v), labels] = 0.85
+    flip = r.random(v) < 0.35
+    q[flip] = r.dirichlet(np.full(k, 0.8),
+                          size=int(flip.sum())).astype(np.float32)
+    return q, labels
+
+
+def cp_simplex_setup(dtype, device="cuda", verbose=0):
+    """``bench_cut_pursuit_simplex``'s graph, observations and options
+    (``bench.py:436-459``): ``cut="device"``, the per-iteration device
+    loop."""
+    import torch
+    from cp_pfdr_graph_d1_tpu_torch import (CPOptions, PFDROptions,
+                                            StencilGraphD1)
+    q_np, _ = cp_simplex_problem()
+    g = StencilGraphD1.create((SIDE_262K, SIDE_262K),
+                              {(0, 1): 0.4, (1, 0): 0.4}, dtype=dtype,
+                              device=device)
+    q = torch.as_tensor(q_np, dtype=dtype, device=device)
+    opt = CPOptions(dif_tol=1e-3, it_max=10,
+                    pfdr=PFDROptions(rho=1.5, dif_tol=1e-6, it_max=3000),
+                    cut="device", cut_tol=1e-5, cut_it_max=50_000,
+                    verbose=verbose)
+    return g, q, opt
+
+
+def run_cp_simplex(dtype, device="cuda", verbose=0):
+    """One solve of ``cp_simplex_setup``'s problem through the entry point.
+    Returns ``(seconds, result, graph, q tensor)``; fails if an expansion
+    cut fell back to the host."""
+    import torch
+    from cp_pfdr_graph_d1_tpu_torch import cp_loss_d1_simplex
+    g, q, opt = cp_simplex_setup(dtype, device, verbose)
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        t0 = time.perf_counter()
+        res = cp_loss_d1_simplex(g, q, al=1.0, opt=opt)
+        np.asarray(res.rp)
+        dt = time.perf_counter() - t0
+    for wn in caught:
+        check("falling back" not in str(wn.message),
+              f"multi-label CP left the card: {wn.message}")
+        warnings.warn_explicit(wn.message, wn.category, wn.filename,
+                               wn.lineno)
+    return dt, res, g, q
+
+
+def simplex_objective(res, g, q):
+    """``loss_objective + d1_objective`` of a cut-pursuit result, float64 on
+    the card."""
+    import torch
+    from cp_pfdr_graph_d1_tpu_torch.solvers import pfdr_simplex as ps
+    g64 = type(g)(g.la_d1.double(), g.field_shape, g.shifts, g.wrap)
+    p = torch.as_tensor(res.rp[res.cv], dtype=torch.float64, device=q.device)
+    return float(ps.loss_objective(1.0, p, q.double(), None)
+                 + ps.d1_objective(g64, p))
+
+
+def cp_simplex_reference(device="cuda"):
+    """The float64 cut-pursuit solve on the card that the cp-simplex path is
+    held against (run before the path's counted window)."""
+    import torch
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        t, res, g, q = run_cp_simplex(torch.float64, device, verbose=1)
+    for ln in buf.getvalue().splitlines():
+        if ln.startswith("CP-simplex it"):
+            print(f"[cp-simplex] float64 reference: {ln}", flush=True)
+    return dict(seconds=t, ml=res.rp[res.cv].argmax(1),
+                obj=simplex_objective(res, g, q), it=res.it,
+                comps=len(res.rp))
+
+
+def phase_cp_simplex_kernels(device="cuda"):
+    """``mincut_fused`` and ``components_fused`` against their plain
+    versions on the inputs the cp-simplex path gives them: a float32 run
+    of its device loop records them, and expansion cut 2 of CP iteration 3
+    and that iteration's components call are replayed.  That cut misses
+    its certificate within ``cut_it_max`` and continues from its own
+    iterates, so both of its calls are replayed, each with the step cap
+    the loop gave it, in float32 and, on the same inputs cast, in float64:
+    in float64 equal steps, the same certificate outcome and equal sides;
+    in float32 the same certificate outcome and, where both certify, cut
+    values within twice the certificate.  The certificate of the float32
+    iterates summed in float64 tells rounding in the kernel's float32 sums
+    from slow convergence.  The components' labels must be equal bit for
+    bit."""
+    import torch
+    from cp_pfdr_graph_d1_tpu_torch.maxflow.device import cut_value
+    from cp_pfdr_graph_d1_tpu_torch.ops import components_fused as cf
+    from cp_pfdr_graph_d1_tpu_torch.ops import mincut_fused as mf
+    from cp_pfdr_graph_d1_tpu_torch.solvers import \
+        cut_pursuit_simplex_device as csd
+    g, q, opt = cp_simplex_setup(torch.float32, device)
+    record = []
+    csd.cp_loss_d1_simplex_device(g, q, al=1.0, opt=opt, record=record)
+    it_c, n_c = 2, 2
+    calls = [a for tag, *key, a in record if tag == "cut"
+             and key == [it_c, n_c]]
+    masks = [a for tag, *key, a in record if tag == "components"
+             and key == [it_c]]
+    check(len(calls) >= 1 and len(masks) == 1, "cp-simplex record lacks "
+          f"cut {n_c} or the components of CP iteration {it_c + 1}")
+    del record
+    kw = dict(shifts=g.shifts, check_every=min(250, opt.cut_it_max))
+    eu, ev, _ = g.host_coo()
+    shape = (f"{SIDE_262K}x{SIDE_262K} F=2, expansion cut {n_c} of CP "
+             f"iteration {it_c + 1}")
+    out = dict(shape=shape, calls=[])
+    for i, args32 in enumerate(calls):
+        it_max = opt.cut_it_max * (1 if i == 0 else csd.CONTINUE_FACTOR)
+        call = dict(it_max=it_max, tol=float(args32[6]))
+        for name, args in (("float32", args32),
+                           ("float64", tuple(a.double() for a in args32))):
+            res, ms = [], []
+            for fn in (mf.fused_pdhg_min_cut, mf.pdhg_min_cut_plain):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                r = fn(*args, it_max, **kw)
+                float(r[2])
+                ms.append((time.perf_counter() - t0) * 1e3)
+                res.append(r)
+            tol = float(args[6])
+            cert = [float(r[2]) <= tol for r in res]
+            steps = [int(r[4]) for r in res]
+            sides = [(r[0] > r[3]).reshape(-1) for r in res]
+            apart = int((sides[0] != sides[1]).sum())
+            err = max(max_err(res[0][0], res[1][0]),
+                      max_err(res[0][1], res[1][1]))
+            w = args[0].reshape(-1).cpu().numpy()
+            c = args[1].reshape(-1).cpu().numpy()
+            vals = [cut_value(eu, ev, w, c, sd.cpu().numpy())
+                    for sd in sides]
+            row = dict(steps=steps, gap=[float(r[2]) for r in res],
+                       certified=cert, sides_apart=apart, max_abs_err=err,
+                       cut_values=vals, ms=ms[0], plain_ms=ms[1])
+            line = (f"[cp-simplex cut] {shape}, call {i + 1} (cap {it_max} "
+                    f"steps), {name}: kernel {steps[0]} steps gap "
+                    f"{row['gap'][0]:.6g}, plain {steps[1]} steps gap "
+                    f"{row['gap'][1]:.6g} (certificate {tol:.6g}); sides "
+                    f"apart {apart}, cut values {vals[0]:.9g} vs "
+                    f"{vals[1]:.9g}, x/z max|kernel-plain| {err:.3e}; "
+                    f"{ms[0]:.1f} ms, plain {ms[1]:.1f} ms")
+            if name == "float32":
+                w64, c64 = args[0].double(), args[1].double()
+                g64 = [float(mf.certificate_plain(
+                    w64, c64, r[0].double(), r[1].double(),
+                    shifts=g.shifts)[0]) for r in res]
+                row["gap_summed_in_float64"] = g64
+                line += ("; the same iterates' certificate summed in "
+                         f"float64: kernel {g64[0]:.6g}, plain {g64[1]:.6g}")
+            print(line, flush=True)
+            check(cert[0] == cert[1], f"mincut_fused on the cp-simplex cut: "
+                  f"certificate outcomes differ: {line}")
+            if name == "float64":
+                check(steps[0] == steps[1] and apart == 0, f"mincut_fused on "
+                      f"the cp-simplex cut: {line}")
+            elif all(cert):
+                check(abs(vals[0] - vals[1]) <= 2 * tol, line)
+            call[name] = row
+        out["calls"].append(call)
+
+    mask = (~masks[0] & (g.la_d1 > 0)).reshape(
+        len(g.shifts), SIDE_262K, SIDE_262K).contiguous()
+    ckw = dict(shifts=g.shifts, it_max=SIDE_262K * SIDE_262K)
+    lab_k, rounds_k = cf.fused_components(mask, **ckw)
+    lab_p, rounds_p = cf.components_plain(mask, **ckw)
+    n_comp = int((lab_k.reshape(-1) == torch.arange(
+        mask[0].numel(), device=device)).sum())
+    check(bool((lab_k == lab_p).all()), "components_fused on the cp-simplex "
+          "path: labels differ from the plain version's")
+    comp = dict(shape=f"{SIDE_262K}x{SIDE_262K} F=2, components of CP "
+                      f"iteration {it_c + 1}",
+                rounds=[int(rounds_k), int(rounds_p)], components=n_comp,
+                labels_equal=True,
+                ms=cuda_ms(lambda: cf.fused_components(mask, **ckw), 20),
+                plain_ms=cuda_ms(lambda: cf.components_plain(mask, **ckw),
+                                 2))
+    print(f"[cp-simplex components] {comp['shape']}: {n_comp} components, "
+          f"labels equal to the plain version's; rounds {comp['rounds']}; "
+          f"{comp['ms']:.3f} ms, plain {comp['plain_ms']:.2f} ms", flush=True)
+    return out, comp
+
+
+def phase_cp_simplex(ref, device="cuda"):
+    """Main path: ``cp_loss_d1_simplex`` on ``bench_cut_pursuit_simplex``'s
+    problem through ``cut="device"``, float32: one cold run (printing its
+    per-iteration record), then the min of two warm runs; held against the
+    float64 solve on the card: ML labels at most 2 % apart and objective
+    within 1e-3 relative."""
+    import torch
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        runs = [run_cp_simplex(torch.float32, device, verbose=1)]
+    record = [ln for ln in buf.getvalue().splitlines()
+              if ln.startswith("CP-simplex it")]
+    runs += [run_cp_simplex(torch.float32, device),
+             run_cp_simplex(torch.float32, device)]
+    t_best = min(r[0] for r in runs[1:])
+    _, res, g, q = runs[-1]
+    p = res.rp[res.cv]
+    check(np.all(np.isfinite(p)) and p.shape == (SIDE_262K ** 2, K_SIMPLEX),
+          "multi-label cut-pursuit result not finite or of the wrong shape")
+    dis = float(np.mean(p.argmax(1) != ref["ml"]))
+    obj = simplex_objective(res, g, q)
+    rel = abs(obj - ref["obj"]) / abs(ref["obj"])
+    _, truth = cp_simplex_problem()
+    acc = float(np.mean(p.argmax(1) == truth))
+    print(f"[cp-simplex] float32 on the card, {SIDE_262K}x{SIDE_262K} "
+          f"K={K_SIMPLEX}, cut='device': min of two warm runs "
+          f"{t_best * 1e3:.1f} ms (cold {runs[0][0] * 1e3:.1f} ms); {res.it} "
+          f"CP iterations, {len(res.rp)} components; ML labels apart from "
+          f"float64 on the card {dis:.4%} (tol 2%), objective {obj:.9g} vs "
+          f"{ref['obj']:.9g} (rel {rel:.2e}, tol 1e-3; float64 "
+          f"{ref['seconds'] * 1e3:.1f} ms, {ref['it']} CP iterations, "
+          f"{ref['comps']} components); accuracy against the clean labels "
+          f"{acc:.4f}", flush=True)
+    for ln in record:
+        print(f"[cp-simplex] {ln}", flush=True)
+    check(dis <= 0.02, f"multi-label CP labels {dis:.3%} apart from float64")
+    check(rel <= 1e-3, f"multi-label CP objective {obj} vs float64 "
+          f"{ref['obj']}: {rel:.3g} relative")
+    return t_best
+
 
 def phase_profile(device="cuda"):
     """Where the time goes, after the counted run: device time by kernel
@@ -1034,6 +1541,44 @@ def phase_profile(device="cuda"):
           + "; ".join(f"{k[:40]} {v / 1e3:.2f} ms" for k, v in top),
           flush=True)
 
+    dev, per, wall = device_profile(
+        lambda: pfdr_simplex_solve(torch.float32, device, short), 1)
+    top = sorted(per.items(), key=lambda kv: -kv[1])[:3]
+    print(f"[profile] pfdr-simplex {short} iterations: device busy "
+          f"{dev / short:.2f} us/iteration of {wall / short:.1f} us on the "
+          f"host clock (idle share {1 - dev / wall:.3f}); top kernels: "
+          + "; ".join(f"{k[:48]} {v / short:.2f} us" for k, v in top),
+          flush=True)
+    profile_cp_simplex(device)
+
+
+def profile_cp_simplex(device="cuda"):
+    """Device busy share of one multi-label cut-pursuit run, with the host
+    time of its cuts and of its reduced solves from the loop's own
+    per-iteration record."""
+    import torch
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        dev, per, wall = device_profile(
+            lambda: run_cp_simplex(torch.float32, device, verbose=1), 1)
+    lines = [ln for ln in buf.getvalue().splitlines()
+             if ln.startswith("CP-simplex it")]
+    lines = lines[len(lines) // 2:]  # the profiled run, after the warm-up
+    stages = [re.search(r"cuts continued (\[.*?\]).*cuts ([0-9.]+) "
+                        r"ms, reduced solve ([0-9.]+) ms", ln).groups()
+              for ln in lines]
+    cut_ms = sum(float(c) for _, c, _ in stages)
+    red_ms = sum(float(r) for _, _, r in stages)
+    continued = [r for r, _, _ in stages]
+    top = sorted(per.items(), key=lambda kv: -kv[1])[:5]
+    print(f"[profile] cp-simplex run: device busy {dev / 1e3:.1f} ms of "
+          f"{wall / 1e3:.1f} ms on the host clock (idle share "
+          f"{1 - dev / wall:.3f}), of which the cuts {cut_ms:.1f} ms (cuts "
+          f"continued per CP iteration: {', '.join(continued)}) and "
+          f"the {len(stages)} reduced solves {red_ms:.1f} ms; top kernels: "
+          + "; ".join(f"{k[:40]} {v / 1e3:.2f} ms" for k, v in top),
+          flush=True)
+
 
 def bound(nbytes, flops):
     """``(bound_ms, bound_by)``: the larger of the bytes over the memory
@@ -1068,6 +1613,12 @@ def main():
     cc_t = phase_components()
     sf_err, sfm = phase_solve_fused()
     crossover()
+    sx_err, sx_t = phase_stencil_simplex()
+    cps_cut, cps_comp = phase_cp_simplex_kernels()
+    # the float64 solves the multi-label paths are held against, outside
+    # the paths' counted windows
+    p64 = simplex_reference()
+    cp_ref = cp_simplex_reference()
 
     # the main paths: each with the counts set to 0 just before it and read
     # just after; each must have launched the kernels it runs
@@ -1078,6 +1629,10 @@ def main():
               ("mincut_fused", "components_fused", "stencil_fused",
                "solve_small")),
              ("cp-device", phase_cp_device, (),
+              ("mincut_fused", "components_fused")),
+             ("pfdr-simplex", phase_pfdr_simplex, (p64,),
+              ("stencil_fused_simplex",)),
+             ("cp-simplex", phase_cp_simplex, (cp_ref,),
               ("mincut_fused", "components_fused")))
     f_ref = None
     for name, fn, args, needs in paths:
@@ -1114,6 +1669,14 @@ def main():
         "solve_fused": reduced_solve_work(sfm["args"][5].shape[0],
                                           sfm["args"][8].shape[0],
                                           sfm["args"][1].shape[0], 300),
+        # inputs p, q, ga, ga_proj, prev (K planes), la_f, 7 F K edge
+        # planes; outputs p, prev, zu, zv.  Operations per (vertex, label):
+        # 1 + 2F forward values (~6), 2F pair proxes (~16) and weighted
+        # sums (2), K projection passes (4), the tail (6)
+        "stencil_fused_simplex": (
+            4 * v_eeg * (7 * K_SIMPLEX + 1 + 9 * f2 * K_SIMPLEX),
+            v_eeg * K_SIMPLEX * ((1 + 2 * f2) * 6 + 2 * f2 * 18
+                                 + 4 * K_SIMPLEX + 6)),
     }
     rows = [
         dict(name="stencil_fused", source="stencil_fused.cu",
@@ -1135,12 +1698,12 @@ def main():
                                  if d == torch.float64),
              ms=mc["ms"], plain_ms=mc["plain_ms"],
              shape=f"{SIDE_524K}x{SIDE_524K} F=2, one certified cut of "
-                   f"{mc['it']} steps"),
+                   f"{mc['it']} steps", cp_simplex_cut=cps_cut),
         dict(name="components_fused", source="components_fused.cu",
              replaces="components_fused.py:84", max_abs_err=0.0,
              ms=cc["ms"], plain_ms=cc["plain_ms"],
              shape=f"{SIDE_524K}x{SIDE_524K} F=2, 10% active, "
-                   f"{cc['rounds']} rounds"),
+                   f"{cc['rounds']} rounds", cp_simplex_components=cps_comp),
         dict(name="solve_fused", source="solve_fused.cu",
              replaces="solve_fused.py:300", max_abs_err=sf_err[
                  torch.float32], max_abs_err_f64=sf_err[torch.float64],
@@ -1151,6 +1714,14 @@ def main():
                    f"rv_cap={sfm['args'][5].shape[0]} "
                    f"e={sfm['args'][8].shape[0]} (the host-cut path's first "
                    f"reduced problem), 300 iterations"),
+        dict(name="stencil_fused_simplex", source="stencil_fused_simplex.cu",
+             replaces="stencil_fused_simplex.py:111",
+             max_abs_err=sx_err[torch.float32],
+             max_abs_err_f64=sx_err[torch.float64], ms=sx_t["ms"],
+             plain_ms=sx_t["plain_ms"], device_us=sx_t["device_us"],
+             plain_device_us=sx_t["plain_device_us"],
+             shape=f"{V_SIDE}x{V_SIDE} F=2 K={K_SIMPLEX}, one multi-label "
+                   f"PFDR iteration"),
     ]
     kernels = []
     for row in rows:

@@ -24,12 +24,18 @@ from .operators import (DenseOp, DiagOp, GramOp, IdentityOp,  # noqa: E402
                         QuadOp, make_operator)
 from .solvers import (PFDRResult, VertexProx,  # noqa: E402
                       pfdr_quadratic_d1)
+from .solvers.cut_pursuit_simplex import (CPSimplexResult,  # noqa: E402
+                                          CPSimplexState, cp_loss_d1_simplex)
+from .solvers.pfdr_simplex import (SimplexResult,  # noqa: E402
+                                   SimplexSolveState, pfdr_loss_d1_simplex)
 from .stencil import StencilGraphD1  # noqa: E402
 
 __all__ = [
     "CPOptions", "Lipsch", "PFDROptions", "GraphD1", "StencilGraphD1",
     "DenseOp", "DiagOp", "GramOp", "IdentityOp", "QuadOp", "make_operator",
     "PFDRResult", "VertexProx", "pfdr_quadratic_d1",
+    "CPSimplexResult", "CPSimplexState", "cp_loss_d1_simplex",
+    "SimplexResult", "SimplexSolveState", "pfdr_loss_d1_simplex",
 ]
 
 __version__ = "0.1.0"

@@ -5,10 +5,8 @@ Two kinds of library are built, both from sources in this repository:
 * the CUDA kernels of ``csrc/`` — each source compiled by its own ``nvcc``
   process for ``sm_90a``, all at once, then linked into one shared library
   with a plain C interface, loaded with :mod:`ctypes`;
-* the host C++ of the JAX package (push-relabel min-cut, native PFDR) —
-  compiled the same way by ``g++`` from their paths in
-  ``cp_pfdr_graph_d1_tpu/``, not copied, so the two packages run the same
-  host code.
+* the host C++ of ``csrc/host/`` (push-relabel min-cut, native PFDR) —
+  compiled the same way by ``g++``.
 
 A library is rebuilt when it is missing or older than one of its sources.
 Each build writes to a temporary name and renames it into place, so
@@ -26,7 +24,7 @@ from pathlib import Path
 PKG_DIR = Path(__file__).resolve().parent
 BUILD_DIR = PKG_DIR / "build"
 CSRC_DIR = PKG_DIR / "csrc"
-JAX_PKG_DIR = PKG_DIR.parent / "cp_pfdr_graph_d1_tpu"
+HOST_SRC_DIR = CSRC_DIR / "host"
 
 CUDA_ARCH = "sm_90a"
 
@@ -119,11 +117,11 @@ def cuda_kernels() -> ctypes.CDLL:
     return _load("cp_pfdr_kernels", sources, cmd, headers)
 
 
-def host_library(name: str, relative_sources) -> ctypes.CDLL:
-    """g++ build of host C++ sources of the JAX package."""
+def host_library(name: str, source_names) -> ctypes.CDLL:
+    """g++ build of host C++ sources of ``csrc/host/``, by file name."""
     lib = _libs.get(name)
     if lib is not None:
         return lib
-    sources = [JAX_PKG_DIR / s for s in relative_sources]
+    sources = [HOST_SRC_DIR / s for s in source_names]
     cmd = ["g++", "-O3", "-march=native", "-fPIC", "-std=c++17"]
     return _load(name, sources, cmd)

@@ -3,12 +3,12 @@
 families, for the dense, ``AtA`` and ``l22`` operators.
 
 Cut-pursuit entries return ``(Cv, rX, it, Time, Obj, Dif, state)`` with
-the full solution ``x = rX[Cv]``; PFDR entries return ``(X, it, Obj, Dif)``
-with ``X`` a tensor.  Every entry takes ``device`` (default ``"cuda"``); the
-CPU must be asked for by name.  The dtype is float64 when an input is
-float64, float32 otherwise.  ``container="auto"`` means COO in the port;
-the circulant container and the multi-label (simplex) entries are not
-ported yet and raise :class:`NotImplementedError`.
+the full solution ``x = rX[Cv]`` (``rX`` of shape [rV, K] for the
+multi-label entry); PFDR entries return ``(X, it, Obj, Dif)`` with ``X`` a
+tensor.  Every entry takes ``device`` (default ``"cuda"``); the CPU must be
+asked for by name.  The dtype is float64 when an input is float64, float32
+otherwise.  ``container="auto"`` means COO in the port; the circulant
+container is not ported yet and raises :class:`NotImplementedError`.
 """
 from __future__ import annotations
 
@@ -21,7 +21,9 @@ from .config import CPOptions, Lipsch, PFDROptions
 from .graph import GraphD1
 from .operators import DenseOp, DiagOp, GramOp, IdentityOp
 from .solvers.cut_pursuit import cp_quadratic_d1
+from .solvers.cut_pursuit_simplex import cp_loss_d1_simplex as _cp_simplex
 from .solvers.pfdr_quadratic import VertexProx, pfdr_quadratic_d1
+from .solvers.pfdr_simplex import pfdr_loss_d1_simplex
 
 
 class CPOutput(NamedTuple):
@@ -224,11 +226,28 @@ def cp_l22_d1_bounds(Y, La_l2, Eu, Ev, La_d1, m=-np.inf, M=np.inf,
     return out
 
 
-def cp_loss_d1_simplex(*args, **kwargs):
-    """Multi-label cut-pursuit: not ported yet (ROADMAP queue 1 item 8)."""
-    raise NotImplementedError(
-        "the multi-label (simplex) solvers are not ported yet: ROADMAP "
-        "queue 1 item 8")
+# ---------------------------------------------------------------------------
+# cut-pursuit entry, simplex family
+# ---------------------------------------------------------------------------
+
+def cp_loss_d1_simplex(Q, al, Eu, Ev, La_d1, CP_difTol=1e-3, CP_itMax=10,
+                       PFDR_rho=1.0, PFDR_condMin=1e-3, PFDR_difRcd=0.0,
+                       PFDR_difTol=1e-4, PFDR_itMax=10_000, verbose=0,
+                       monitor=False, state=None, inexact="auto",
+                       device="cuda") -> CPOutput:
+    """Multi-label solve
+    (``octave/mex/CP_PFDR_graph_loss_d1_simplex_mex.cpp:12``); ``Q`` is
+    [V, K] vertex-major; returns ``rX`` of shape [rV, K]."""
+    Q = np.asarray(Q)
+    dtype = _dtype_of(Q)
+    g = _graph(Eu, Ev, La_d1, Q.shape[0], dtype, device)
+    opt = _cp_options(CP_difTol, CP_itMax, PFDR_rho, PFDR_condMin,
+                      PFDR_difRcd, PFDR_difTol, PFDR_itMax, verbose,
+                      inexact)
+    res = _cp_simplex(g, _tensor(Q, dtype, device), al=float(al), opt=opt,
+                      monitor=monitor, state=state)
+    return CPOutput(res.cv, res.rp, res.it, res.time, res.obj, res.dif,
+                    res.state)
 
 
 # ---------------------------------------------------------------------------
@@ -370,11 +389,31 @@ def pfdr_l22_d1_bounds(Y, La_l2, Eu, Ev, La_d1, m=-np.inf, M=np.inf,
                      PFDR_itMax, monitor, x0, verbose)
 
 
-def pfdr_loss_d1_simplex_api(*args, **kwargs):
-    """Multi-label PFDR: not ported yet (ROADMAP queue 1 item 8)."""
-    raise NotImplementedError(
-        "the multi-label (simplex) solvers are not ported yet: ROADMAP "
-        "queue 1 item 8")
+def pfdr_loss_d1_simplex_api(Q, al, Eu, Ev, La_d1, La_f=None, PFDR_rho=1.0,
+                             PFDR_condMin=1e-3, PFDR_difRcd=0.0,
+                             PFDR_difTol=1e-4, PFDR_itMax=10_000, verbose=0,
+                             monitor=False, P0=None,
+                             device="cuda") -> PFDROutput:
+    """Standalone multi-label inner solver
+    (``octave/mex/PFDR_graph_loss_d1_simplex_mex.cpp``)."""
+    Q = np.asarray(Q)
+    dtype = _dtype_of(Q)
+    num_v = Q.shape[0]
+    g = _graph(Eu, Ev, La_d1, num_v, dtype, device)
+    res = pfdr_loss_d1_simplex(
+        g, _tensor(Q, dtype, device), al=float(al),
+        la_f=None if La_f is None else _tensor(
+            np.broadcast_to(np.asarray(La_f), (num_v,)), dtype, device),
+        p0=None if P0 is None else _tensor(P0, dtype, device),
+        opt=PFDROptions(rho=float(PFDR_rho), cond_min=float(PFDR_condMin),
+                        dif_rcd=float(PFDR_difRcd),
+                        dif_tol=float(PFDR_difTol), it_max=int(PFDR_itMax),
+                        verbose=int(verbose)),
+        monitor=monitor)
+    empty = res.p.new_zeros(0)
+    return PFDROutput(res.p, res.it,
+                      res.obj[:res.it + 1] if monitor else empty,
+                      res.dif[:res.it] if monitor else empty)
 
 
 # ---------------------------------------------------------------------------

@@ -4,8 +4,8 @@ The port cannot import ``jax``, so the caller hands over numpy arrays and
 plain values (``np.asarray`` on each JAX array, ``dataclasses.asdict`` on an
 options object); these functions build the port's objects from them.  The
 tests feed both packages the same problem this way, and a solve started in
-the JAX package resumes in the port from its :class:`PFDRSolveState` or
-:class:`CPState`.
+the JAX package resumes in the port from its :class:`PFDRSolveState`,
+:class:`CPState`, :class:`SimplexSolveState` or :class:`CPSimplexState`.
 """
 from __future__ import annotations
 
@@ -18,7 +18,9 @@ from .config import CPOptions, PFDROptions
 from .graph import GraphD1
 from .operators import DenseOp, DiagOp, GramOp, IdentityOp
 from .solvers.cut_pursuit import CPState
+from .solvers.cut_pursuit_simplex import CPSimplexState
 from .solvers.pfdr_quadratic import Precond, PFDRSolveState
+from .solvers.pfdr_simplex import SimplexPrecond, SimplexSolveState
 from .stencil import StencilGraphD1
 
 
@@ -93,3 +95,23 @@ def cp_state(active, cv, rx) -> CPState:
     """:class:`CPState` (host arrays) from the fields of the JAX one."""
     return CPState(active=np.array(active, bool),
                    cv=np.array(cv, np.int32), rx=np.array(rx))
+
+
+def simplex_solve_state(p, zu, zv, pre, prev, dif, dif_rcd, it,
+                        device="cuda") -> SimplexSolveState:
+    """:class:`SimplexSolveState` from the fields of the JAX one; ``pre`` is
+    the sequence of its seven ``SimplexPrecond`` arrays (ga, ga_proj, wu,
+    wv, w_d1u, w_d1v, th_d1).  The edge arrays keep the JAX container's
+    edge order, so resume on the same kind of container."""
+    return SimplexSolveState(
+        p=_tensor(p, device), zu=_tensor(zu, device), zv=_tensor(zv, device),
+        pre=SimplexPrecond(*(_tensor(a, device) for a in pre)),
+        prev=_tensor(prev, device), dif=_tensor(dif, device),
+        dif_rcd=_tensor(dif_rcd, device), it=int(np.asarray(it)))
+
+
+def cp_simplex_state(active, cv, rp) -> CPSimplexState:
+    """:class:`CPSimplexState` (host arrays) from the fields of the JAX
+    one."""
+    return CPSimplexState(active=np.array(active, bool),
+                          cv=np.array(cv, np.int32), rp=np.array(rp))

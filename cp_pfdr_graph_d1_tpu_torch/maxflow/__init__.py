@@ -3,9 +3,9 @@
 
 For per-vertex direction costs ``c`` and edge weights ``w``, finds the set
 ``U`` minimizing ``sum_{v in U} c_v + sum_{e in boundary(U)} w_e``.  The
-solver is the JAX package's FIFO push-relabel ``maxflow/mincut.cpp``,
-compiled by g++ from that path into the port's ``build/`` directory at first
-use; without a C++ toolchain :func:`min_cut` falls back to a Dinic
+solver is a FIFO push-relabel, the port's copy ``csrc/host/mincut.cpp`` of
+the JAX package's source, compiled by g++ into the port's ``build/``
+directory at first use; without a C++ toolchain :func:`min_cut` falls back to a Dinic
 implementation in Python.  Both run on the host.
 """
 from __future__ import annotations
@@ -26,7 +26,7 @@ def _get_lib():
     if _lib is not None or _use_fallback:
         return _lib
     try:
-        lib = host_library("cpmincut", ["maxflow/mincut.cpp"])
+        lib = host_library("cpmincut", ["mincut.cpp"])
     except (OSError, RuntimeError) as e:
         warnings.warn(f"native min-cut unavailable ({e}); "
                       "falling back to pure-Python Dinic")

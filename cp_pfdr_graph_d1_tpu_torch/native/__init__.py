@@ -1,11 +1,12 @@
 """Native host PFDR for small reduced problems (counterpart of
-``pfdr_quadratic_d1_host`` in ``cp_pfdr_graph_d1_tpu.native``).
+``cp_pfdr_graph_d1_tpu.native``).
 
-Runs the same preconditioned forward-Douglas-Rachford iteration as
-:mod:`..solvers.pfdr_quadratic` in C++ float64 on the host: the JAX
-package's ``native/pfdr.cpp``, compiled by g++ from that path into the
-port's ``build/`` directory at first use.  Cut-pursuit's ``host_small``
-route sends reduced problems here.
+Runs the same preconditioned forward-Douglas-Rachford iterations as
+:mod:`..solvers.pfdr_quadratic` and :mod:`..solvers.pfdr_simplex` in C++
+float64 on the host: the port's copies ``csrc/host/pfdr.cpp`` and
+``csrc/host/pfdr_simplex.cpp`` of the JAX package's sources, compiled by g++
+into the port's ``build/`` directory at first use.  Cut-pursuit's
+``host_small="on"`` route sends reduced problems here.
 """
 from __future__ import annotations
 
@@ -28,7 +29,7 @@ def _get_lib():
     if _lib is not None or _unavailable:
         return _lib
     try:
-        lib = host_library("cppfdr", ["native/pfdr.cpp"])
+        lib = host_library("cppfdr", ["pfdr.cpp", "pfdr_simplex.cpp"])
     except (OSError, RuntimeError) as e:
         warnings.warn(f"native PFDR unavailable ({e})")
         _unavailable = True
@@ -43,6 +44,16 @@ def _get_lib():
         ctypes.c_void_p,  # lip_diag (nullable)
         ctypes.c_double, ctypes.c_double, ctypes.c_double,
         ctypes.c_double, ctypes.c_double, ctypes.c_int,
+        _F64, ctypes.POINTER(ctypes.c_int),
+    ]
+    lib.native_pfdr_loss_d1_simplex.restype = ctypes.c_int
+    lib.native_pfdr_loss_d1_simplex.argtypes = [
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_double,
+        _F64,
+        ctypes.c_void_p,  # la_f (nullable)
+        _I32, _I32, _F64,
+        ctypes.c_double, ctypes.c_double, ctypes.c_double,
+        ctypes.c_double, ctypes.c_int,
         _F64, ctypes.POINTER(ctypes.c_int),
     ]
     _lib = lib
@@ -111,3 +122,35 @@ def pfdr_quadratic_d1_host(op_mode: int, a, y, eu, ev, la_d1, *,
     if rc != 0:
         raise RuntimeError(f"native PFDR returned {rc}")
     return x, int(it.value)
+
+
+def pfdr_loss_d1_simplex_host(q, al, eu, ev, la_d1, *, la_f=None,
+                              rho=1.0, cond_min=1e-3, dif_rcd=0.0,
+                              dif_tol=1e-4, it_max=10_000, p0=None):
+    """Host C++ multi-label PFDR solve (float64, [V, K] vertex-major) on
+    numpy arrays.
+
+    Returns:
+      (p [V, K] float64, iterations)
+    """
+    lib = _get_lib()
+    if lib is None:
+        raise RuntimeError("native PFDR library unavailable")
+    q = np.ascontiguousarray(q, np.float64)
+    v, k = q.shape
+    eu = np.ascontiguousarray(eu, np.int32)
+    ev = np.ascontiguousarray(ev, np.int32)
+    la_d1 = np.ascontiguousarray(np.broadcast_to(la_d1, eu.shape),
+                                 np.float64)
+    if la_f is not None:
+        la_f = np.ascontiguousarray(np.broadcast_to(la_f, (v,)), np.float64)
+    p = (np.full((v, k), 1.0 / k) if p0 is None
+         else np.ascontiguousarray(p0, np.float64).copy())
+    it = ctypes.c_int(0)
+    rc = lib.native_pfdr_loss_d1_simplex(
+        v, len(eu), k, float(al), q, _ptr(la_f), eu, ev, la_d1,
+        float(rho), float(cond_min), float(dif_rcd), float(dif_tol),
+        int(it_max), p, ctypes.byref(it))
+    if rc != 0:
+        raise RuntimeError(f"native multi-label PFDR returned {rc}")
+    return p, int(it.value)

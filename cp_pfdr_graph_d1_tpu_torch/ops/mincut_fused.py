@@ -44,17 +44,31 @@ def _adjoint(w, z, shifts):
     return acc
 
 
+def certificate_plain(w, c, x, z, *, shifts: Tuple):
+    """Certificate of the iterates ``(x, z)``, summed in their type:
+    ``(gap, t_best)``, the best of the 15 threshold cuts of ``x`` less the
+    dual bound of ``z``, and that cut's threshold."""
+    ts = thresholds(x.dtype, x.device)
+    dual = torch.clamp(c + _adjoint(w, z, shifts), max=0).sum()
+    side = x[None] > ts[:, None, None]                      # [T, H, W]
+    vals = torch.where(side, c, 0).sum(dim=(1, 2))
+    for k, (dy, dx) in enumerate(shifts):
+        cut = side != torch.roll(side, (-dy, -dx), dims=(1, 2))
+        vals = vals + torch.where(cut, w[k], 0).sum(dim=(1, 2))
+    best = int(torch.argmin(vals))
+    return vals[best] - dual, ts[best]
+
+
 def pdhg_min_cut_plain(w, c, tau, sigma, x0, z0, tol, it_max: int, *,
                        shifts: Tuple, check_every: int):
     """Plain PyTorch version of the kernel (same arguments and results as
     :func:`fused_pdhg_min_cut`), written as the JAX package's Pallas kernel
     body is."""
-    ts = thresholds(x0.dtype, x0.device)
     sw = [sigma[k] * w[k] for k in range(len(shifts))]
     x, xb, z = x0.clone(), x0.clone(), z0.clone()
     it = 0
     gap = torch.tensor(float("inf"), dtype=x0.dtype, device=x0.device)
-    t_best = ts[0]
+    t_best = thresholds(x0.dtype, x0.device)[0]
     while it < it_max and bool(gap > tol):
         for _ in range(check_every):
             z = torch.stack([
@@ -63,15 +77,7 @@ def pdhg_min_cut_plain(w, c, tau, sigma, x0, z0, tol, it_max: int, *,
             x_new = torch.clamp(x - tau * (_adjoint(w, z, shifts) + c), 0, 1)
             xb = 2 * x_new - x
             x = x_new
-        dual = torch.clamp(c + _adjoint(w, z, shifts), max=0).sum()
-        side = x[None] > ts[:, None, None]                  # [T, H, W]
-        vals = torch.where(side, c, 0).sum(dim=(1, 2))
-        for k, (dy, dx) in enumerate(shifts):
-            cut = side != torch.roll(side, (-dy, -dx), dims=(1, 2))
-            vals = vals + torch.where(cut, w[k], 0).sum(dim=(1, 2))
-        best = int(torch.argmin(vals))
-        gap = vals[best] - dual
-        t_best = ts[best]
+        gap, t_best = certificate_plain(w, c, x, z, shifts=shifts)
         it += check_every
     return (x, z, gap, t_best,
             torch.tensor(it, dtype=torch.int32, device=x0.device))

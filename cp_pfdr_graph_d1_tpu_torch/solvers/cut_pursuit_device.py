@@ -31,9 +31,12 @@ CP iteration.  Here the whole iteration stays on the tensors' device:
 * merge and evolution tests: elementwise on the device.
 
 Host reads per iteration: the new-edge count, the certificates, the
-component and reduced-edge counts and the evolution.  An uncertified cut is
-redone on the host push-relabel with a warning (the exactness guard of the
-JAX package), never used silently.  Run sums and segment reductions are
+component and reduced-edge counts and the evolution.  An uncertified cut
+continues from its own iterates on the device for up to
+``CONTINUE_FACTOR`` times ``cut_it_max`` more steps; one still uncertified
+raises for CUDA tensors and, for CPU tensors, is redone on the host
+push-relabel with a warning (the exactness guard of the JAX package); it
+is never used silently.  Run sums and segment reductions are
 deterministic (no float atomics), so a run's trajectory does not change
 between runs.
 """
@@ -64,6 +67,9 @@ from .pfdr_quadratic import VertexProx, pfdr_quadratic_d1
 # above this component count the [V, rV] one-hot contractions give way to
 # sorted segment sums (the one-hot selector would take O(V rV) memory)
 _ONEHOT_MAX = 4096
+# an uncertified device cut continues for up to this many times cut_it_max
+# more steps before the host redo (CPU tensors) or an error (CUDA tensors)
+CONTINUE_FACTOR = 4
 _INT_SENTINEL = 2**31 - 1
 
 
@@ -415,18 +421,33 @@ def cp_quadratic_d1_device(op: QuadOp, obs, graph: GraphD1, *,
                                   lo=lo, hi=hi,
                                   differentiable=differentiable,
                                   has_l1=has_l1, positivity=positivity)
-        sep, gap1, big1, *cut1 = _device_cut(graph, active, c1, opt.cut_tol,
-                                             opt.cut_it_max, chk, *cut1)
-        checks = [gap1, big1]
-        if not differentiable:
-            sep2, gap2, big2, *cut2 = _device_cut(
-                graph, active, c2, opt.cut_tol, opt.cut_it_max, chk, *cut2)
-            checks += [gap2, big2]
-            sep = sep | sep2
-        *gaps, n_new = torch.stack([v.to(torch.float64) for v in checks]
-                                   + [sep.sum().to(torch.float64)]).tolist()
-        if not all(gap <= opt.cut_tol * big
-                   for gap, big in zip(gaps[::2], gaps[1::2])):
+        def cuts(it_max):
+            nonlocal cut1, cut2
+            sep, gap1, big1, *cut1 = _device_cut(
+                graph, active, c1, opt.cut_tol, it_max, chk, *cut1)
+            checks = [gap1, big1]
+            if not differentiable:
+                sep2, gap2, big2, *cut2 = _device_cut(
+                    graph, active, c2, opt.cut_tol, it_max, chk, *cut2)
+                checks += [gap2, big2]
+                sep = sep | sep2
+            *gaps, n_new = torch.stack(
+                [v.to(torch.float64) for v in checks]
+                + [sep.sum().to(torch.float64)]).tolist()
+            return sep, int(n_new), all(
+                gap <= opt.cut_tol * big
+                for gap, big in zip(gaps[::2], gaps[1::2]))
+
+        sep, n_new, certified = cuts(opt.cut_it_max)
+        if not certified:
+            # continue the cuts from their own iterates
+            sep, n_new, certified = cuts(CONTINUE_FACTOR * opt.cut_it_max)
+        if not certified:
+            if obs.is_cuda:
+                raise RuntimeError(
+                    f"steepest cut uncertified after "
+                    f"{(1 + CONTINUE_FACTOR) * opt.cut_it_max} PDHG steps; "
+                    f"raise CPOptions.cut_it_max or cut_tol")
             # exactness guard: redo this iteration's cuts on the host
             warnings.warn("falling back to the host min-cut solver for this "
                           "cut", UserWarning, stacklevel=2)

@@ -19,6 +19,7 @@ import torch
 from .config import numpy_dtype
 from .graph import GraphD1
 from .ops.stencil_fused import fused_stencil_iteration
+from .ops.stencil_fused_simplex import fused_stencil_simplex_iteration
 
 
 class StencilGraphD1(GraphD1):
@@ -156,3 +157,14 @@ class StencilGraphD1(GraphD1):
             hi=float(vprox.hi))
         e = self.num_edges
         return xn.reshape(-1), zun.reshape(e), zvn.reshape(e), num, den
+
+    def fused_simplex_iteration(self, p, q, la_f, ga, ga_proj, prev, zu, zv,
+                                wu, wv, w_d1u, w_d1v, th_d1, *, rho: float,
+                                al: float, has_laf: bool, label_mode: bool):
+        """One fused multi-label PFDR step on ``[K, H, W]`` label planes and
+        ``[F, K, H, W]`` edge planes (see
+        :func:`..ops.stencil_fused_simplex.fused_stencil_simplex_iteration`)."""
+        return fused_stencil_simplex_iteration(
+            p, q, la_f, ga, ga_proj, prev, zu, zv, wu, wv, w_d1u, w_d1v,
+            th_d1, shifts=self.shifts, rho=rho, al=al, has_laf=has_laf,
+            label_mode=label_mode)

@@ -158,12 +158,46 @@ def test_slice_end_to_end_on_stencil():
 
 def test_import_leaves_jax_out():
     code = ("import sys, cp_pfdr_graph_d1_tpu_torch, "
-            "cp_pfdr_graph_d1_tpu_torch.api, cp_pfdr_graph_d1_tpu_torch.convert;"
+            "cp_pfdr_graph_d1_tpu_torch.api, cp_pfdr_graph_d1_tpu_torch.convert, "
+            "cp_pfdr_graph_d1_tpu_torch.solvers.cut_pursuit_simplex_device;"
             "print('jax' in sys.modules)")
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, check=True, timeout=120, cwd=root)
     assert out.stdout.strip() == "False"
+
+
+def test_build_sources_lie_in_the_port(monkeypatch):
+    """Every source the port compiles (the CUDA kernels and the host C++ of
+    the min-cut and native PFDR libraries) lies inside
+    ``cp_pfdr_graph_d1_tpu_torch/``: the port builds nothing of the JAX
+    package."""
+    from unittest import mock
+
+    from cp_pfdr_graph_d1_tpu_torch import _build, maxflow, native
+    built = []
+
+    def record(name, sources, cmd, headers=()):
+        built.extend(list(sources) + list(headers))
+        return mock.MagicMock()
+
+    monkeypatch.setattr(_build, "_libs", {})
+    monkeypatch.setattr(_build, "_load", record)
+    monkeypatch.setattr(_build, "nvcc_path", lambda: "nvcc")
+    monkeypatch.setattr(native, "_lib", None)
+    monkeypatch.setattr(native, "_unavailable", False)
+    monkeypatch.setattr(maxflow, "_lib", None)
+    monkeypatch.setattr(maxflow, "_use_fallback", False)
+    _build.cuda_kernels()
+    native._get_lib()
+    maxflow._get_lib()
+    port = _build.PKG_DIR.resolve()
+    names = {p.name for p in built}
+    assert {"stencil_fused_simplex.cu", "pfdr.cpp", "pfdr_simplex.cpp",
+            "mincut.cpp"} <= names
+    outside = [str(p) for p in built
+               if not p.resolve().is_relative_to(port) or not p.exists()]
+    assert not outside, f"sources outside the port: {outside}"
 
 
 def test_unported_routes_raise():
@@ -177,8 +211,6 @@ def test_unported_routes_raise():
             T.GraphD1.create([0], [1], [1.0], num_vertices=3,
                              dtype=torch.float64, device="cpu"),
             la_l1=0.1, duplex=True, opt=T.CPOptions(cut="device"))
-    with pytest.raises(NotImplementedError, match="queue 1 item 8"):
-        tapi.cp_loss_d1_simplex(np.ones((4, 2)), 1.0, [0], [1], [1.0])
     with pytest.raises(NotImplementedError, match="queue 1 item 9"):
         tapi.pfdr_quadratic_d1_l1(np.ones(2), np.ones((2, 3)), [0], [1],
                                   [1.0], container="circulant",

@@ -9,6 +9,7 @@ bound of ``tests/test_cut_pursuit_chain.py``.  On CPU tensors no kernel is
 launched: every wrapper runs its plain version.
 """
 import dataclasses
+import warnings
 
 import jax.numpy as jnp
 import numpy as np
@@ -126,6 +127,42 @@ def test_device_loop_matches_jax(case):
     np.testing.assert_allclose(res_t.dif, np.asarray(res_j.dif), rtol=1e-5,
                                atol=1e-12)
     assert counters() == before
+
+
+@pytest.mark.parametrize("cut_it_max,host", [(128, False), (1, True)],
+                         ids=["continue", "host"])
+def test_uncertified_cut_continues_then_falls_back(cut_it_max, host,
+                                                   monkeypatch):
+    """The per-iteration device loop on CPU tensors: a steepest cut that
+    misses its certificate within ``cut_it_max`` steps continues from its
+    own iterates for up to ``CONTINUE_FACTOR`` times as many; only what is
+    still uncertified is redone on the host, with a warning.  Both reach
+    the host route's solution."""
+    from cp_pfdr_graph_d1_tpu_torch.solvers import cut_pursuit_device as cpd
+    y = torch.from_numpy(denoise_problem())
+    _, gt = graphs(24, 24, 0.15)
+    caps = []
+    device_cut = cpd._device_cut
+
+    def recording(*args):
+        caps.append(args[4])
+        return device_cut(*args)
+
+    monkeypatch.setattr(cpd, "_device_cut", recording)
+    pf = T.PFDROptions(rho=1.5, dif_tol=1e-7, it_max=4000)
+    opt = T.CPOptions(dif_tol=1e-5, it_max=10, pfdr=pf, cut="device",
+                      chain="off", cut_it_max=cut_it_max)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        res = torch_cp(T.IdentityOp(), y, gt, opt=opt)
+    fell_back = [w for w in caught if "falling back" in str(w.message)]
+    assert bool(fell_back) == host
+    assert cpd.CONTINUE_FACTOR * cut_it_max in caps
+    base = torch_cp(T.IdentityOp(), y, gt,
+                    opt=dataclasses.replace(opt, cut="host"))
+    assert res.it == base.it
+    np.testing.assert_allclose(res.rx[res.cv], base.rx[base.cv], rtol=0,
+                               atol=1e-9)
 
 
 def host_objective(gt, a, y, opt, **kw):
