@@ -36,7 +36,16 @@ It imports nothing of JAX.  Phases, one or more lines each:
    on the inputs the multi-label cut-pursuit path gives them (the calls of
    an expansion cut and a components call recorded from its device loop
    at 512 x 512), the cut in float32 and float64;
-10. the main paths, each with the launch counters set to 0 just before it
+10. on ``bench.py:build_mesh_problem``'s Delaunay mesh (19,600 vertices,
+   strip-ordered by the port's ``strip_order``): ``banded_gather`` and
+   ``banded_scatter`` (and on a 4,096-vertex star, a hub of 4,096 slots;
+   ``index_select`` and ``index_add_`` timed beside them),
+   ``banded_fused``, ``circulant_fused`` (64 families and a banded
+   remainder; and the 140 x 140 grid as a circulant container, no
+   remainder) and ``circulant_fused_simplex`` (K = 4, four losses, and
+   400-iteration float64 loops) against their plain versions, float64 and
+   float32, with the time per call of both;
+11. the main paths, each with the launch counters set to 0 just before it
    and read just after: ``pfdr_quadratic_d1`` on the EEG-scale stencil
    problem (3000 iterations in float32); ``api.cp_quadratic_d1_l1`` on it
    (host cut) in float32, held against the port's own float64 run on the
@@ -48,8 +57,14 @@ It imports nothing of JAX.  Phases, one or more lines each:
    3000 iterations in float32, held against float64 on the card); the
    multi-label cut-pursuit of ``bench.py:bench_cut_pursuit_simplex``
    (512 x 512, K = 4, ``cut="device"``, held against float64 on the card;
-   an expansion cut that leaves the card fails the run);
-11. where the time goes (``torch.profiler``).
+   an expansion cut that leaves the card fails the run); PFDR on the mesh
+   through ``api.pfdr_quadratic_d1_l1(container="auto")`` (which must
+   pick the circulant container; 3000 float32 iterations, held against
+   float64 on the card, and the staged COO loop timed beside it), on a
+   ``BandedGraphD1`` monitored (``banded_fused``) and unmonitored (one
+   ``solve_fused`` launch), and the K = 4 multi-label PFDR of
+   ``bench_unstructured_simplex`` on the circulant container;
+12. where the time goes (``torch.profiler``).
 
 The line before the last is the JSON kernel report; the last line is the
 JSON result.  Any failed check raises, and the script then exits with a
@@ -119,10 +134,11 @@ def cuda_ms(fn, reps):
     return start.elapsed_time(stop) / reps
 
 
-def device_profile(fn, reps):
+def device_profile(fn, reps, counts=None):
     """Device time of ``reps`` calls of ``fn`` from torch.profiler's CUDA
     activity: ``(device us per call, {kernel name: us per call}, host-clock
-    us per call of the profiled window)``."""
+    us per call of the profiled window)``; ``counts``, a dict, receives
+    each item's number of launches or copies."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -138,11 +154,20 @@ def device_profile(fn, reps):
         t = getattr(ev, "self_device_time_total", 0.0)
         if t > 0:
             per[ev.key] = t / reps
+            if counts is not None:
+                counts[ev.key] = ev.count
     return sum(per.values()), per, wall
 
 
 def max_err(a, b):
     return float((a.double() - b.double()).abs().max())
+
+
+def vertex_proxes():
+    """The four vertex proxes the stage kernels take."""
+    from cp_pfdr_graph_d1_tpu_torch import VertexProx
+    return [VertexProx(kind="l1"), VertexProx(kind="l1", positivity=True),
+            VertexProx(kind="bounds", lo=-0.5, hi=0.8), VertexProx()]
 
 
 def phase_env():
@@ -207,10 +232,7 @@ def stencil_setup(dtype, device):
 
 def phase_stencil(device="cuda"):
     import torch
-    from cp_pfdr_graph_d1_tpu_torch import VertexProx
     from cp_pfdr_graph_d1_tpu_torch.ops import stencil_fused as sf
-    vproxes = [VertexProx(kind="l1"), VertexProx(kind="l1", positivity=True),
-               VertexProx(kind="bounds", lo=-0.5, hi=0.8), VertexProx()]
     # absolute error of the fields x, zu, zv; relative error of the sums
     errs = {torch.float64: 0.0, torch.float32: 0.0}
     rel_errs = {torch.float64: 0.0, torch.float32: 0.0}
@@ -223,7 +245,7 @@ def phase_stencil(device="cuda"):
                 pre.th_l1.reshape(h, w)) + tuple(
             a.reshape(f, h, w) for a in (zu, zv, pre.wu, pre.wv, pre.w_d1u,
                                          pre.w_d1v, pre.th_d1))
-        for vp in vproxes:
+        for vp in vertex_proxes():
             kw = dict(shifts=g.shifts, rho=1.5, vkind=vp.kind,
                       positivity=vp.positivity, lo=float(vp.lo),
                       hi=float(vp.hi))
@@ -551,7 +573,10 @@ F32_FLOP_PER_S = 67e12
 
 def counters():
     """Launch counter of each kernel wrapper, by kernel name."""
-    from cp_pfdr_graph_d1_tpu_torch.ops import (components_fused,
+    from cp_pfdr_graph_d1_tpu_torch.ops import (banded, banded_fused,
+                                                circulant_fused,
+                                                circulant_fused_simplex,
+                                                components_fused,
                                                 mincut_fused, solve_fused,
                                                 solve_small, stencil_fused,
                                                 stencil_fused_simplex)
@@ -561,7 +586,13 @@ def counters():
             "components_fused": components_fused.fused_components,
             "solve_fused": solve_fused.fused_pfdr_solve,
             "stencil_fused_simplex":
-                stencil_fused_simplex.fused_stencil_simplex_iteration}
+                stencil_fused_simplex.fused_stencil_simplex_iteration,
+            "banded_gather": banded.banded_gather,
+            "banded_scatter": banded.banded_scatter,
+            "banded_fused": banded_fused.fused_banded_iteration,
+            "circulant_fused": circulant_fused.fused_circulant_iteration,
+            "circulant_fused_simplex":
+                circulant_fused_simplex.fused_circulant_simplex_iteration}
 
 
 def reset_counts():
@@ -792,7 +823,51 @@ def phase_solve_fused(device="cuda"):
                 line += (f"; 300 iterations: kernel {ms:.3f} ms, plain "
                          f"{plain_ms:.1f} ms")
             print(line, flush=True)
+    # the mesh path's call: banded order, no power-of-two padding, the
+    # padding edges' hub row
+    for dtype in (torch.float64, torch.float32):
+        f64 = dtype == torch.float64
+        args, kw = mesh_whole_inputs(dtype, device, MESH_WHOLE_DIF_TOL
+                                     if f64 else 0.0, 3000 if f64 else 300)
+        xk, zk, itk, _ = sfu.fused_pfdr_solve(*args, **kw)
+        xp, zp, itp, _ = sfu.solve_fused_plain(*args, **kw)
+        err = max(max_err(xk, xp), max_err(zk, zp))
+        errs[dtype] = max(errs[dtype], err)
+        name = str(dtype)[6:]
+        main[f"mesh_err_{name}"], main[f"mesh_it_{name}"] = err, int(itk)
+        tol = F64_TOL if f64 else F32_TOL
+        check(int(itk) == int(itp), f"solve_fused mesh {dtype}: it "
+              f"{int(itk)} vs plain {int(itp)}")
+        check(err <= tol, f"solve_fused mesh {dtype}: err {err:.3g}")
+        print(f"[solve_fused] {name} mesh BandedGraphD1 (the pfdr-mesh-banded "
+              f"path's call) rv={kw['rv']} e={args[8].shape[0]} it="
+              f"{int(itk)} (plain {int(itp)}) max|kernel-plain| = "
+              f"{err:.3e} (tol {tol:g})", flush=True)
     return errs, main
+
+
+# the float64 mesh whole solve against its plain version stops on this
+# relative evolution (after 190 iterations, on the CPU in float64)
+MESH_WHOLE_DIF_TOL = 1e-3
+
+
+def mesh_whole_inputs(dtype, device, dif_tol, it_max):
+    """``(args, kw)`` of the ``solve_fused`` call that an unmonitored
+    ``pfdr_quadratic_d1`` makes on the mesh's ``BandedGraphD1``
+    (``bench_unstructured``'s problem, from x = 0)."""
+    import torch
+    from cp_pfdr_graph_d1_tpu_torch import PFDROptions, VertexProx
+    from cp_pfdr_graph_d1_tpu_torch.config import Lipsch
+    from cp_pfdr_graph_d1_tpu_torch.solvers import pfdr_quadratic as pq
+    _, _, a, y = build_mesh_problem()
+    g = mesh_graph("banded", dtype, device)
+    op, obs, la_l1, lip = quadratic_setup(g, a, y, dtype, device)
+    pre = pq.initial_precondition(op, obs, g, la_l1, 1.5, lip, Lipsch.SCAL)
+    x0 = torch.zeros(g.num_vertices, dtype=dtype, device=device)
+    zu, zv = g.gather_endpoints(x0)
+    return pq.whole_solve_inputs(
+        op, obs, g, VertexProx(kind="l1", positivity=True), pre, x0, zu, zv,
+        PFDROptions(rho=1.5, dif_tol=dif_tol, it_max=it_max), "dense")
 
 
 def crossover(device="cuda"):
@@ -1580,6 +1655,653 @@ def profile_cp_simplex(device="cuda"):
           flush=True)
 
 
+# ---------------------------------------------------------------------------
+# slice 4: unstructured meshes (banded and circulant containers)
+# ---------------------------------------------------------------------------
+
+MESH_SEED = 3     # bench.py:build_mesh_problem
+LA_SIMPLEX = 0.5  # bench.py:bench_unstructured_simplex's edge weights
+MESH_SIMPLEX_CASES = (("al=0", 0.0, None, False),
+                      ("al=1 la_f", 1.0, 0.8, False),
+                      ("al=0.2", 0.2, None, False),
+                      ("al=0.2 labels", 0.2, None, True))
+# per slot of a stage kernel: two forward values (6), the pair prox and its
+# relaxation (20), the two weighted terms of the averages (4)
+OPS_PER_SLOT = 30
+
+
+@functools.lru_cache(maxsize=None)
+def build_mesh_problem():
+    """``bench.py:build_mesh_problem``: a Delaunay mesh of 19,600 random
+    points in the unit square relabelled by ``strip_order`` (the port's),
+    a dense A with N = 91 rows and 400 unit sources (seed 3), float32.
+    Returns ``(eu, ev, a, y)``."""
+    from scipy.spatial import Delaunay
+    from cp_pfdr_graph_d1_tpu_torch import strip_order
+    v = V_SIDE * V_SIDE
+    r = np.random.default_rng(MESH_SEED)
+    pts = r.random((v, 2))
+    edges = set()
+    for s in Delaunay(pts).simplices:
+        for i in range(3):
+            a_, b_ = int(s[i]), int(s[(i + 1) % 3])
+            edges.add((min(a_, b_), max(a_, b_)))
+    eu = np.fromiter((e[0] for e in edges), np.int32, len(edges))
+    ev = np.fromiter((e[1] for e in edges), np.int32, len(edges))
+    inv = np.empty(v, np.int64)
+    inv[strip_order(pts)] = np.arange(v)
+    eu, ev = inv[eu].astype(np.int32), inv[ev].astype(np.int32)
+    a = (r.standard_normal((N_OBS, v)) / np.sqrt(N_OBS)).astype(np.float32)
+    x_true = np.zeros(v, np.float32)
+    x_true[r.integers(0, v, 400)] = 1.0
+    y = (a @ x_true + 0.01 * r.standard_normal(N_OBS)).astype(np.float32)
+    return eu, ev, a, y
+
+
+def grid_edges():
+    """The 140 x 140 grid's edges in row-major order (``bench.py``)."""
+    idx = np.arange(V_SIDE * V_SIDE).reshape(V_SIDE, V_SIDE)
+    eu = np.concatenate([idx[:, :-1].ravel(), idx[:-1, :].ravel()])
+    ev = np.concatenate([idx[:, 1:].ravel(), idx[1:, :].ravel()])
+    return eu.astype(np.int32), ev.astype(np.int32)
+
+
+def mesh_graph(kind, dtype, device, la=LA_D1):
+    """The mesh as a ``BandedGraphD1`` or a ``CirculantGraphD1`` (default
+    options: 64 families at most)."""
+    from cp_pfdr_graph_d1_tpu_torch import BandedGraphD1, CirculantGraphD1
+    eu, ev, _, _ = build_mesh_problem()
+    cls = BandedGraphD1 if kind == "banded" else CirculantGraphD1
+    return cls.create(eu, ev, la, num_vertices=V_SIDE * V_SIDE, dtype=dtype,
+                      device=device)
+
+
+def quadratic_setup(g, a, y, dtype, device):
+    """Operator, observation, l1 weights and Lipschitz bound of the
+    quadratic problem ``(a, y)`` (positivity, ``la_l1 = 2e-3``)."""
+    import torch
+    from cp_pfdr_graph_d1_tpu_torch import DenseOp
+    op = DenseOp(torch.as_tensor(a, dtype=dtype, device=device))
+    obs = torch.as_tensor(y, dtype=dtype, device=device)
+    la_l1 = torch.full((g.num_vertices,), LA_L1, dtype=dtype, device=device)
+    lip = float(np.linalg.eigvalsh((a @ a.T).astype(np.float64))[-1])
+    return op, obs, la_l1, lip
+
+
+def stage_args(g, a, y, dtype, device):
+    """Arguments of one quadratic PFDR stage on the container ``g``: the
+    problem's preconditioner and a seeded random iterate and auxiliary
+    pairs, as the stage kernels take them (``(graph, x, grad, ga, th_l1,
+    zu, zv, wu, wv, w_d1u, w_d1v, th_d1)``)."""
+    import torch
+    from cp_pfdr_graph_d1_tpu_torch.config import Lipsch
+    from cp_pfdr_graph_d1_tpu_torch.solvers.pfdr_quadratic import \
+        initial_precondition
+    op, obs, la_l1, lip = quadratic_setup(g, a, y, dtype, device)
+    pre = initial_precondition(op, obs, g, la_l1, 1.5, lip, Lipsch.SCAL)
+    r = np.random.default_rng(11)
+    t = lambda z: torch.as_tensor(z, dtype=dtype, device=device)  # noqa
+    x = t(np.abs(r.normal(size=g.num_vertices)) * 0.5)
+    zu = t(r.normal(size=g.num_edges) * 0.5)
+    zv = t(r.normal(size=g.num_edges) * 0.5)
+    return (g, x, op.grad(x, obs), pre.ga, pre.th_l1, zu, zv, pre.wu, pre.wv,
+            pre.w_d1u, pre.w_d1v, pre.th_d1)
+
+
+def check_stage(name, kern, plain, args, dtype, device):
+    """A quadratic stage kernel against its plain version for the four
+    vertex proxes: x and the sums everywhere, zu and zv on the real slots
+    (the z values of a circulant container's virtual slots depend on the
+    path and are never consumed).  Returns the largest absolute error of
+    the fields."""
+    import torch
+    real = args[0].la_d1 != 0
+    tol = F64_TOL if dtype == torch.float64 else F32_TOL
+    worst = 0.0
+    for vp in vertex_proxes():
+        kw = dict(rho=1.5, vkind=vp.kind, positivity=vp.positivity,
+                  lo=float(vp.lo), hi=float(vp.hi))
+        out_k = kern(*args, **kw)
+        out_p = plain(*args, **kw)
+        if device == "cuda":
+            check(out_k[0].is_cuda, f"{name}: kernel output not on the card")
+        err = max(max_err(out_k[0], out_p[0]),
+                  max_err(out_k[1][real], out_p[1][real]),
+                  max_err(out_k[2][real], out_p[2][real]))
+        rel = max(max_err(k, p) / max(1.0, float(p.abs()))
+                  for k, p in zip(out_k[3:], out_p[3:]))
+        worst = max(worst, err)
+        label = f"{vp.kind}{'+pos' if vp.positivity else ''}"
+        check(err <= tol and rel <= tol, f"{name} {dtype} {label}: x/zu/zv "
+              f"err {err:.3g}, sums rel err {rel:.3g} (tol {tol})")
+        print(f"[{name}] {str(dtype)[6:]} {vp.kind:6s} pos="
+              f"{int(vp.positivity)} x/zu/zv max|kernel-plain| = {err:.3e},"
+              f" num/den rel err {rel:.3e} (tol {tol:g})", flush=True)
+    return worst
+
+
+def time_pair(kern, plain, reps=200, plain_reps=50):
+    """``dict(ms, plain_ms, device_us)``: CUDA-event milliseconds per call
+    of a kernel's wrapper and of its plain version, and the wrapper's
+    device microseconds per call (torch.profiler)."""
+    return dict(ms=cuda_ms(kern, reps), plain_ms=cuda_ms(plain, plain_reps),
+                device_us=device_profile(kern, reps)[0])
+
+
+def phase_banded_transfers(device="cuda"):
+    """``banded_gather`` and ``banded_scatter`` against their plain versions
+    on the mesh's banded container and on a star graph (vertex 0 joined to
+    4,095 leaves: a hub row of 4,095 slots), for [V] and [V, 4] fields, in
+    float64 (1e-12) and float32 (F32_TOL relative to the largest value);
+    float32 [V] times beside ``torch.index_select`` (the gather in one
+    call on the concatenated endpoints) and two ``index_add_`` calls into
+    zeros (the scatter; its float atomics make it nondeterministic)."""
+    import torch
+    from cp_pfdr_graph_d1_tpu_torch import BandedGraphD1
+    from cp_pfdr_graph_d1_tpu_torch.ops import banded
+    star_v = 4096
+    leaves = np.arange(1, star_v, dtype=np.int32)
+    out = {}
+    for dtype in (torch.float64, torch.float32):
+        graphs = {
+            "mesh": mesh_graph("banded", dtype, device),
+            "star": BandedGraphD1.create(np.zeros(star_v - 1, np.int32),
+                                         leaves, 0.5, num_vertices=star_v,
+                                         dtype=dtype, device=device)}
+        tol = 1e-12 if dtype == torch.float64 else F32_TOL
+        for gname, g in graphs.items():
+            r = np.random.default_rng(5)
+            for k in (None, K_SIMPLEX):
+                shape = (g.num_vertices,) + (() if k is None else (k,))
+                eshape = (g.num_edges,) + shape[1:]
+                x = torch.as_tensor(r.normal(size=shape), dtype=dtype,
+                                    device=device)
+                vu = torch.as_tensor(r.normal(size=eshape), dtype=dtype,
+                                     device=device)
+                vv = torch.as_tensor(r.normal(size=eshape), dtype=dtype,
+                                     device=device)
+                gk = banded.banded_gather(g, x)
+                gp = banded.banded_gather_plain(g, x)
+                sk = banded.banded_scatter(g, vu, vv)
+                sp = banded.banded_scatter_plain(g, vu, vv)
+                if device == "cuda":
+                    check(gk[0].is_cuda and sk.is_cuda,
+                          "banded kernel output not on the card")
+                g_err = max(max_err(gk[0], gp[0]), max_err(gk[1], gp[1]))
+                s_err = max_err(sk, sp) / max(1.0, float(sp.abs().max()))
+                check(g_err == 0.0, f"banded_gather {gname} {dtype}: err "
+                      f"{g_err:.3g}")
+                check(s_err <= tol, f"banded_scatter {gname} {dtype}: rel "
+                      f"err {s_err:.3g} > {tol}")
+                sk2 = banded.banded_scatter(g, vu, vv)
+                check(bool(torch.equal(sk, sk2)), f"banded_scatter {gname} "
+                      f"{dtype}: two calls differ")
+                line = (f"[banded] {str(dtype)[6:]} {gname} V={g.num_vertices}"
+                        f" E={g.num_edges} K={k or 1}: gather "
+                        f"max|kernel-plain| {g_err:.3e}, scatter "
+                        f"max|kernel-plain|/max(1,max|plain|) {s_err:.3e} "
+                        f"(tol {tol:g}), repeat bit-equal")
+                if dtype == torch.float32 and k is None and device == "cuda":
+                    idx = g.edge_index()
+                    both = torch.cat([idx.eu, idx.ev]).to(torch.int64)
+                    eu64, ev64 = g.eu, g.ev
+                    t_g = time_pair(lambda: banded.banded_gather(g, x),
+                                    lambda: banded.banded_gather_plain(g, x))
+                    t_s = time_pair(
+                        lambda: banded.banded_scatter(g, vu, vv),
+                        lambda: banded.banded_scatter_plain(g, vu, vv))
+                    t_g["library_ms"] = cuda_ms(
+                        lambda: x.index_select(0, both), 200)
+                    t_s["library_ms"] = cuda_ms(
+                        lambda: torch.zeros_like(x).index_add_(
+                            0, eu64, vu).index_add_(0, ev64, vv), 200)
+                    out[gname] = dict(
+                        v=g.num_vertices, e=g.num_edges,
+                        long_rows=int(idx.long_rows.numel()),
+                        gather=t_g, scatter=t_s)
+                    line += "; float32 per call:"
+                    for kname, t, lib in (("gather", t_g, "index_select"),
+                                          ("scatter", t_s, "index_add_ x2")):
+                        line += (f" {kname} {t['ms'] * 1e3:.2f} us "
+                                 f"({t['device_us']:.2f} us of device time;"
+                                 f" plain {t['plain_ms'] * 1e3:.2f}, {lib} "
+                                 f"{t['library_ms'] * 1e3:.2f});")
+                    line += (f" rows of more than {banded.LONG_ROW} slots: "
+                             f"{int(idx.long_rows.numel())}")
+                errs = out.setdefault("err", {})
+                for kern, e in (("gather", g_err), ("scatter", s_err)):
+                    key = (kern, gname, dtype)
+                    errs[key] = max(errs.get(key, 0.0), e)
+                print(line, flush=True)
+    return out
+
+
+def phase_banded_fused(device="cuda"):
+    """``banded_fused`` against its plain version on the mesh's banded
+    container, one stage from a random state, for the four vertex proxes,
+    float64 and float32; float32 times per call."""
+    import torch
+    from cp_pfdr_graph_d1_tpu_torch.ops import banded_fused as bf
+    _, _, a, y = build_mesh_problem()
+    errs, times = {}, {}
+    for dtype in (torch.float64, torch.float32):
+        args = stage_args(mesh_graph("banded", dtype, device), a, y, dtype,
+                          device)
+        errs[dtype] = check_stage("banded_fused", bf.fused_banded_iteration,
+                                  bf.banded_fused_plain, args, dtype, device)
+        if dtype == torch.float32 and device == "cuda":
+            kw = dict(rho=1.5, vkind="l1", positivity=True, lo=-np.inf,
+                      hi=np.inf)
+            times = time_pair(
+                lambda: bf.fused_banded_iteration(*args, **kw),
+                lambda: bf.banded_fused_plain(*args, **kw))
+            times["e"] = args[0].num_edges
+            print(f"[banded_fused] float32 mesh V={args[0].num_vertices} "
+                  f"E={times['e']} (banded order, padded) l1+pos, per call: "
+                  f"kernel {times['ms'] * 1e3:.2f} us "
+                  f"({times['device_us']:.2f} us of device time), plain "
+                  f"{times['plain_ms'] * 1e3:.2f} us", flush=True)
+    return errs, times
+
+
+def phase_circulant_fused(device="cuda"):
+    """``circulant_fused`` against its plain version, one stage from a random
+    state, for the four vertex proxes, float64 and float32: on the mesh's
+    circulant container (64 families and a banded remainder) and on the
+    140 x 140 grid built as a circulant container (2 families, no
+    remainder); float32 times per call on the mesh."""
+    import torch
+    from cp_pfdr_graph_d1_tpu_torch import CirculantGraphD1
+    from cp_pfdr_graph_d1_tpu_torch.ops import circulant_fused as cf
+    _, _, a_m, y_m = build_mesh_problem()
+    a_g, y_g = build_grid_problem()
+    geu, gev = grid_edges()
+    errs, times = {}, {}
+    for dtype in (torch.float64, torch.float32):
+        cases = (("mesh", mesh_graph("circulant", dtype, device), a_m, y_m),
+                 ("grid", CirculantGraphD1.create(
+                     geu, gev, LA_D1, num_vertices=V_SIDE * V_SIDE,
+                     dtype=dtype, device=device), a_g, y_g))
+        for gname, g, a, y in cases:
+            print(f"[circulant_fused] {gname}: {len(g.offsets)} families of "
+                  f"{g.vv} slots, {g.num_rem} remainder slots", flush=True)
+            check((g.num_rem > 0) == (gname == "mesh"),
+                  f"circulant {gname}: {g.num_rem} remainder slots")
+            args = stage_args(g, a, y, dtype, device)
+            errs[(gname, dtype)] = check_stage(
+                f"circulant_fused {gname}", cf.fused_circulant_iteration,
+                cf.circulant_fused_plain, args, dtype, device)
+            if dtype == torch.float32 and gname == "mesh" and \
+                    device == "cuda":
+                kw = dict(rho=1.5, vkind="l1", positivity=True, lo=-np.inf,
+                          hi=np.inf)
+                times = time_pair(
+                    lambda: cf.fused_circulant_iteration(*args, **kw),
+                    lambda: cf.circulant_fused_plain(*args, **kw))
+                times.update(f=len(g.offsets), vv=g.vv, rem=g.num_rem)
+                print(f"[circulant_fused] float32 mesh l1+pos, per call: "
+                      f"kernel {times['ms'] * 1e3:.2f} us "
+                      f"({times['device_us']:.2f} us of device time), plain "
+                      f"{times['plain_ms'] * 1e3:.2f} us", flush=True)
+    return errs, times
+
+
+def mesh_simplex_q():
+    """``bench_unstructured_simplex``'s observations: Dirichlet(0.7) rows of
+    K = 4 labels on the mesh (seed 13)."""
+    r = np.random.default_rng(13)
+    return r.dirichlet(np.full(K_SIMPLEX, 0.7),
+                       size=V_SIDE * V_SIDE).astype(np.float32)
+
+
+def mesh_simplex_problem(dtype, device, la_f):
+    import torch
+    g = mesh_graph("circulant", dtype, device, la=LA_SIMPLEX)
+    q = torch.as_tensor(mesh_simplex_q(), dtype=dtype, device=device)
+    laf = (torch.full((g.num_vertices,), la_f, dtype=dtype, device=device)
+           if la_f is not None else None)
+    return g, q, laf
+
+
+def mesh_simplex_planes(dtype, device, al, la_f, label_mode, seed=3):
+    """Kernel inputs of one multi-label iteration on the mesh's circulant
+    container: the problem's preconditioner, a seeded random iterate on
+    the simplex and random auxiliary pairs, as ``[K, V]`` and ``[K, E]``
+    planes."""
+    import torch
+    from cp_pfdr_graph_d1_tpu_torch.solvers import pfdr_simplex as ps
+    g, q, laf = mesh_simplex_problem(dtype, device, la_f)
+    t = lambda z: torch.as_tensor(z, dtype=dtype, device=device)  # noqa
+    r = np.random.default_rng(seed)
+    p = t(r.dirichlet(np.ones(K_SIMPLEX), size=g.num_vertices))
+    pre = ps.initial_precondition_simplex(al, laf, g, q, p, 1.5)
+    zu0, zv0 = g.gather_endpoints(p)
+    zu = zu0 + t(0.05 * r.standard_normal(zu0.shape))
+    zv = zv0 + t(0.05 * r.standard_normal(zv0.shape))
+    tv = g.vertex_planes
+    laf3 = tv(laf[:, None] if laf is not None
+              else torch.zeros((g.num_vertices, 1), dtype=dtype,
+                               device=device))
+    prev = (tv(torch.argmax(p, dim=1).to(dtype)[:, None]) if label_mode
+            else tv(p))
+    args = ((g, tv(p), tv(q), laf3, tv(pre.ga), tv(pre.ga_proj), prev)
+            + tuple(tv(z) for z in (zu, zv, pre.wu, pre.wv, pre.w_d1u,
+                                    pre.w_d1v, pre.th_d1)))
+    kw = dict(rho=1.5, al=al, has_laf=la_f is not None,
+              label_mode=label_mode)
+    return args, kw
+
+
+def mesh_simplex_loop(dtype, device, al, la_f, label_mode, plain):
+    """400 iterations of the solver's kernel loop on the mesh's circulant
+    container from the uniform start, each iteration the kernel's wrapper
+    or, with ``plain``, its plain version, both on the card."""
+    import torch
+    from cp_pfdr_graph_d1_tpu_torch import PFDROptions
+    from cp_pfdr_graph_d1_tpu_torch.ops import circulant_fused_simplex as cfs
+    from cp_pfdr_graph_d1_tpu_torch.solvers import pfdr_simplex as ps
+    g, q, laf = mesh_simplex_problem(dtype, device, la_f)
+    p0 = torch.full_like(q, 1.0 / K_SIMPLEX)
+    pre = ps.initial_precondition_simplex(al, laf, g, q, p0, 1.5)
+    opt = PFDROptions(rho=1.5, dif_tol=1.0 if label_mode else 1e-9,
+                      it_max=400)
+    step = functools.partial(cfs.circulant_simplex_plain, g) if plain else None
+    res = ps._simplex_fused_loop(g, q, p0, laf, pre, al=al, opt=opt,
+                                 has_laf=laf is not None,
+                                 label_mode=label_mode, step=step)
+    return res.p, res.it
+
+
+def phase_circulant_simplex(device="cuda"):
+    """``circulant_fused_simplex`` against its plain version on the mesh,
+    K = 4, for four losses: one iteration (float64 within F64_TOL, float32
+    within F32_TOL on p and the real slots' zu, zv, the evolution sum
+    relative to max(1, |plain|); in label mode equal labels and counts in
+    float64, at most 0.1 % of the vertices apart in float32), then a
+    400-iteration float64 loop of each with equal iteration counts.
+    float32 times per call for the main path's case (al = 1, no la_f)."""
+    import torch
+    from cp_pfdr_graph_d1_tpu_torch.ops import circulant_fused_simplex as cfs
+    errs = {torch.float64: 0.0, torch.float32: 0.0}
+    v = V_SIDE * V_SIDE
+    for dtype in (torch.float64, torch.float32):
+        tol = F64_TOL if dtype == torch.float64 else F32_TOL
+        for name, al, la_f, label_mode in MESH_SIMPLEX_CASES:
+            args, kw = mesh_simplex_planes(dtype, device, al, la_f,
+                                           label_mode)
+            real = args[0].la_d1 != 0
+            out_k = cfs.fused_circulant_simplex_iteration(*args, **kw)
+            out_p = cfs.circulant_simplex_plain(*args, **kw)
+            if device == "cuda":
+                check(out_k[0].is_cuda, "kernel output not on the card")
+            err = max(max_err(out_k[0], out_p[0]),
+                      max_err(out_k[2][:, real], out_p[2][:, real]),
+                      max_err(out_k[3][:, real], out_p[3][:, real]))
+            if label_mode:
+                n_lab = int((out_k[1] != out_p[1]).sum())
+                d_cnt = abs(float(out_k[4]) - float(out_p[4]))
+                allowed = 0 if dtype == torch.float64 else v // 1000
+                check(n_lab <= allowed and d_cnt <= allowed,
+                      f"circulant_fused_simplex {dtype} {name}: {n_lab} "
+                      f"labels and count {d_cnt} apart (allowed {allowed})")
+                extra = (f"labels apart {n_lab}, counts {float(out_k[4]):.0f}"
+                         f" vs {float(out_p[4]):.0f}")
+            else:
+                err = max(err, max_err(out_k[1], out_p[1]))
+                rel = (max_err(out_k[4], out_p[4])
+                       / max(1.0, abs(float(out_p[4]))))
+                check(rel <= tol, f"circulant_fused_simplex {dtype} {name}: "
+                      f"sum rel err {rel:.3g} > {tol}")
+                extra = f"evolution sum rel err {rel:.3e}"
+            check(err <= tol, f"circulant_fused_simplex {dtype} {name}: "
+                  f"p/zu/zv err {err:.3g} > {tol}")
+            errs[dtype] = max(errs[dtype], err)
+            line = (f"[circulant_fused_simplex] {str(dtype)[6:]} {name:13s} "
+                    f"one iteration: p/zu/zv max|kernel-plain| = {err:.3e} "
+                    f"(tol {tol:g}); {extra}")
+            if dtype == torch.float64:
+                pk, itk = mesh_simplex_loop(dtype, device, al, la_f,
+                                            label_mode, plain=False)
+                pp, itp = mesh_simplex_loop(dtype, device, al, la_f,
+                                            label_mode, plain=True)
+                lerr = max_err(pk, pp)
+                check(itk == itp and lerr <= F64_TOL,
+                      f"circulant_fused_simplex {name}: loop of {itk} "
+                      f"iterations vs plain {itp}, p err {lerr:.3g}")
+                line += (f"; 400-iteration loop: {itk} iterations (plain "
+                         f"{itp}), p max|kernel-plain| {lerr:.3e}")
+            print(line, flush=True)
+    times = {}
+    if device == "cuda":
+        args, kw = mesh_simplex_planes(torch.float32, device, 1.0, None,
+                                       False)
+        times = time_pair(
+            lambda: cfs.fused_circulant_simplex_iteration(*args, **kw),
+            lambda: cfs.circulant_simplex_plain(*args, **kw))
+        g = args[0]
+        times.update(f=len(g.offsets), vv=g.vv, rem=g.num_rem)
+        print(f"[circulant_fused_simplex] float32 mesh K={K_SIMPLEX} al=1, "
+              f"per call: kernel {times['ms'] * 1e3:.2f} us "
+              f"({times['device_us']:.2f} us of device time), plain "
+              f"{times['plain_ms'] * 1e3:.2f} us", flush=True)
+    return errs, times
+
+
+def mesh_pfdr(dtype, device, container, iters=3000, monitor=False):
+    """``bench_unstructured``'s solve (l1 with positivity, rho = 1.5,
+    dif_tol = 0): through ``api.pfdr_quadratic_d1_l1`` for the "auto",
+    "circulant" and "coo" containers, through ``pfdr_quadratic_d1`` on a
+    ``BandedGraphD1`` for "banded".  Returns ``(x on the host, iterations,
+    seconds)``."""
+    import torch
+    from cp_pfdr_graph_d1_tpu_torch import (PFDROptions, VertexProx, api,
+                                            pfdr_quadratic_d1)
+    eu, ev, a, y = build_mesh_problem()
+    v = a.shape[1]
+    npd = np.float64 if dtype == torch.float64 else np.float32
+    lip = float(np.linalg.eigvalsh((a @ a.T).astype(np.float64))[-1])
+    if container == "banded":
+        g = mesh_graph("banded", dtype, device)
+        op, obs, la_l1, _ = quadratic_setup(g, a, y, dtype, device)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    if container == "banded":
+        res = pfdr_quadratic_d1(
+            op, obs, g, la_l1=la_l1,
+            vprox=VertexProx(kind="l1", positivity=True), lipsch=lip,
+            opt=PFDROptions(rho=1.5, dif_tol=0.0, it_max=iters),
+            monitor=monitor)
+        x, it = res.x.cpu(), res.it
+    else:
+        out = api.pfdr_quadratic_d1_l1(
+            y.astype(npd), a.astype(npd), eu, ev, LA_D1,
+            La_l1=np.full(v, LA_L1, npd), positivity=True, L=lip,
+            PFDR_rho=1.5, PFDR_difTol=0.0, PFDR_itMax=iters, monitor=monitor,
+            container=container, device=device)
+        x, it = out.X.cpu(), out.it
+    return x, it, time.perf_counter() - t0
+
+
+def mesh_reference(device="cuda"):
+    """The float64 solve on the card that the mesh paths are held against
+    (run before the paths' counted windows)."""
+    import torch
+    x, it, dt = mesh_pfdr(torch.float64, device, "auto")
+    print(f"[pfdr-mesh] float64 reference on the card: {it} iterations, "
+          f"{dt:.2f} s", flush=True)
+    return x
+
+
+def phase_pfdr_mesh(x64, device="cuda", iters=3000):
+    """Main path: ``api.pfdr_quadratic_d1_l1(..., container="auto")`` on
+    ``bench_unstructured``'s problem, float32, through
+    ``circulant_fused``; max |x - x64| <= 1e-3.  Then the same solve
+    through the staged loop on a COO ``GraphD1`` on the card, for
+    scale."""
+    import torch
+    from cp_pfdr_graph_d1_tpu_torch import CirculantGraphD1, api
+    from cp_pfdr_graph_d1_tpu_torch.ops import circulant_fused as cf
+    eu, ev, a, _ = build_mesh_problem()
+    g = api._graph(eu, ev, LA_D1, a.shape[1], torch.float32, device, "auto")
+    check(isinstance(g, CirculantGraphD1), f"container='auto' chose "
+          f"{type(g).__name__} for the mesh")
+    before = cf.fused_circulant_iteration.launches
+    x, it, dt = mesh_pfdr(torch.float32, device, "auto", iters)
+    grew = cf.fused_circulant_iteration.launches - before
+    check(grew == iters and it == iters, f"circulant_fused launched {grew} "
+          f"times in a {it}-iteration solve")
+    check(bool(torch.isfinite(x).all()) and x.shape == (a.shape[1],),
+          "mesh PFDR result not finite or misshapen")
+    err = max_err(x, x64)
+    n_edges = len(eu)
+    print(f"[pfdr-mesh] float32 mesh V={a.shape[1]} E={n_edges} N={N_OBS}, "
+          f"container='auto' -> CirculantGraphD1 ({len(g.offsets)} families "
+          f"of {g.vv} slots, {g.num_rem} remainder slots), {iters} "
+          f"iterations through circulant_fused: {dt * 1e6 / iters:.2f} "
+          f"us/iteration, {n_edges * iters / dt:.4g} edge-updates/s "
+          f"(launches +{grew}); max|x - x float64 on the card| {err:.3e} "
+          f"(tol 1e-3)", flush=True)
+    check(err <= 1e-3, f"mesh PFDR float32 vs float64: {err:.3g}")
+    short = 300
+    _, _, dt_coo = mesh_pfdr(torch.float32, device, "coo", short)
+    print(f"[pfdr-mesh] the same solve through the staged loop on a COO "
+          f"GraphD1 on the card, {short} iterations: "
+          f"{dt_coo * 1e6 / short:.2f} us/iteration, "
+          f"{n_edges * short / dt_coo:.4g} edge-updates/s; the circulant "
+          f"layout moves {len(g.offsets) * g.vv + g.num_rem} slots for "
+          f"{n_edges} edges", flush=True)
+    return dt * 1e6 / iters
+
+
+def phase_pfdr_mesh_banded(x64, device="cuda", iters=3000):
+    """Main path: ``pfdr_quadratic_d1`` on the mesh's ``BandedGraphD1``,
+    float32: monitored (the ``banded_fused`` loop, with ``banded_gather``
+    and ``banded_scatter`` in the preconditioner and the objective), then
+    unmonitored (one ``solve_fused`` launch); each held against x64 at
+    1e-3."""
+    import torch
+    from cp_pfdr_graph_d1_tpu_torch.ops import banded_fused as bf
+    from cp_pfdr_graph_d1_tpu_torch.ops import solve_fused as sfu
+    out = {}
+    for monitor in (True, False):
+        before = (bf.fused_banded_iteration.launches,
+                  sfu.fused_pfdr_solve.launches)
+        x, it, dt = mesh_pfdr(torch.float32, device, "banded", iters,
+                              monitor=monitor)
+        grew = (bf.fused_banded_iteration.launches - before[0],
+                sfu.fused_pfdr_solve.launches - before[1])
+        want = (iters, 0) if monitor else (0, 1)
+        check(grew == want and it == iters, f"banded solve (monitor="
+              f"{monitor}): launches (banded_fused, solve_fused) +{grew}, "
+              f"expected +{want}, {it} iterations")
+        check(bool(torch.isfinite(x).all()), "banded result not finite")
+        err = max_err(x, x64)
+        route = "banded_fused loop" if monitor else "solve_fused whole solve"
+        print(f"[pfdr-mesh-banded] float32 BandedGraphD1, monitor="
+              f"{int(monitor)}, {iters} iterations through the {route}: "
+              f"{dt * 1e6 / iters:.2f} us/iteration (launches +{grew}); "
+              f"max|x - x float64 on the card| {err:.3e} (tol 1e-3)",
+              flush=True)
+        check(err <= 1e-3, f"banded PFDR float32 vs float64: {err:.3g}")
+        out["monitor" if monitor else "whole"] = dt * 1e6 / iters
+    return out
+
+
+def mesh_simplex_solve(dtype, device, iters, fused="auto"):
+    """``bench_unstructured_simplex``'s solve: al = 1, rho = 1.5,
+    dif_tol = 0, on the mesh's circulant container."""
+    from cp_pfdr_graph_d1_tpu_torch import PFDROptions, pfdr_loss_d1_simplex
+    g, q, _ = mesh_simplex_problem(dtype, device, None)
+    return pfdr_loss_d1_simplex(
+        g, q, al=1.0, opt=PFDROptions(rho=1.5, dif_tol=0.0, it_max=iters,
+                                      fused=fused))
+
+
+def phase_pfdr_mesh_simplex(p64, device="cuda", iters=3000):
+    """Main path: ``pfdr_loss_d1_simplex`` on the mesh's
+    ``CirculantGraphD1`` (``bench_unstructured_simplex``), float32, through
+    ``circulant_fused_simplex``; max |p - p64| <= 1e-3."""
+    import torch
+    from cp_pfdr_graph_d1_tpu_torch.ops import circulant_fused_simplex as cfs
+    before = cfs.fused_circulant_simplex_iteration.launches
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = mesh_simplex_solve(torch.float32, device, iters)
+    p = res.p.cpu()
+    dt = time.perf_counter() - t0
+    grew = cfs.fused_circulant_simplex_iteration.launches - before
+    check(grew == iters and res.it == iters, f"circulant_fused_simplex "
+          f"launched {grew} times in a {res.it}-iteration solve")
+    check(bool(torch.isfinite(p).all())
+          and p.shape == (V_SIDE * V_SIDE, K_SIMPLEX),
+          "mesh multi-label result not finite or misshapen")
+    err = max_err(p, p64)
+    n_edges = len(build_mesh_problem()[0])
+    print(f"[pfdr-mesh-simplex] float32 mesh K={K_SIMPLEX}, {iters} "
+          f"iterations through circulant_fused_simplex: "
+          f"{dt * 1e6 / iters:.2f} us/iteration, "
+          f"{n_edges * iters / dt:.4g} edge-updates/s (launches +{grew}); "
+          f"max|p - p float64 on the card| {err:.3e} (tol 1e-3); row sums "
+          f"within {float((p.double().sum(1) - 1).abs().max()):.2e} of 1",
+          flush=True)
+    check(err <= 1e-3, f"mesh multi-label PFDR float32 vs float64: "
+          f"{err:.3g}")
+    return dt * 1e6 / iters
+
+
+def profile_mesh(device="cuda"):
+    """Device busy share and top device items per iteration of the three
+    mesh paths (the banded path monitored and whole), from the difference
+    of a 100- and an 1100-iteration solve (each the quicker of two runs on
+    the host clock), so that the set-up (the container's upload and build,
+    the preconditioner) falls out; then the set-up's own device time and
+    top items.  A copy made as often in both solves is set-up: a pageable
+    upload's device time waits on the host's staging and varies by
+    milliseconds between runs, which the difference would spread over the
+    iterations."""
+    import torch
+
+    def quicker(n):
+        runs_n = []
+        for _ in range(2):
+            cnt = {}
+            runs_n.append(device_profile(lambda: fn(n), 1, cnt) + (cnt,))
+        return min(runs_n, key=lambda r: r[2])
+    runs = (("pfdr-mesh", lambda n: mesh_pfdr(torch.float32, device, "auto",
+                                              n)),
+            ("pfdr-mesh-banded monitored",
+             lambda n: mesh_pfdr(torch.float32, device, "banded", n,
+                                 monitor=True)),
+            ("pfdr-mesh-banded whole",
+             lambda n: mesh_pfdr(torch.float32, device, "banded", n)),
+            ("pfdr-mesh-simplex",
+             lambda n: mesh_simplex_solve(torch.float32, device, n).p.cpu()))
+    lo, hi = 100, 1100
+    for name, fn in runs:
+        (_, per_lo, wall_lo, cnt_lo), (_, per_hi, wall_hi, cnt_hi) = (
+            quicker(lo), quicker(hi))
+        n = hi - lo
+        per = {k: (v - per_lo.get(k, 0.0)) / n for k, v in per_hi.items()
+               if not (k.startswith("Memcpy")
+                       and cnt_hi.get(k) == cnt_lo.get(k))}
+        setup = {k: v - lo * per.get(k, 0.0) for k, v in per_lo.items()}
+        dev, wall = sum(per.values()), (wall_hi - wall_lo) / n
+        top = sorted(per.items(), key=lambda kv: -kv[1])[:4]
+        top_setup = sorted(setup.items(), key=lambda kv: -kv[1])[:3]
+        print(f"[profile] {name}, per iteration ({hi} - {lo} iterations): "
+              f"device busy {dev:.2f} us of {wall:.1f} us on the host clock "
+              f"(idle share {1 - dev / wall:.3f}); top items: "
+              + "; ".join(f"{k[:48]} {v:.2f} us" for k, v in top)
+              + f"; set-up outside the iterations {sum(setup.values()):.1f} "
+              f"us of device time: "
+              + "; ".join(f"{k[:48]} {v:.1f} us" for k, v in top_setup),
+              flush=True)
+        print(f"[profile] {name}, copies of the {lo}-iteration solve: "
+              + "; ".join(f"{k} x{cnt_lo[k]} {v:.1f} us"
+                          for k, v in per_lo.items()
+                          if k.startswith("Memcpy")), flush=True)
+
+
 def bound(nbytes, flops):
     """``(bound_ms, bound_by)``: the larger of the bytes over the memory
     rate and the float32 operations over the float32 rate."""
@@ -1615,10 +2337,16 @@ def main():
     crossover()
     sx_err, sx_t = phase_stencil_simplex()
     cps_cut, cps_comp = phase_cp_simplex_kernels()
-    # the float64 solves the multi-label paths are held against, outside
-    # the paths' counted windows
+    bt = phase_banded_transfers()
+    bf_err, bf_t = phase_banded_fused()
+    cf_err, cf_t = phase_circulant_fused()
+    cs_err, cs_t = phase_circulant_simplex()
+    # the float64 solves the multi-label and mesh paths are held against,
+    # outside the paths' counted windows
     p64 = simplex_reference()
     cp_ref = cp_simplex_reference()
+    x_mesh64 = mesh_reference()
+    p_mesh64 = mesh_simplex_solve(torch.float64, "cuda", 3000).p.cpu()
 
     # the main paths: each with the counts set to 0 just before it and read
     # just after; each must have launched the kernels it runs
@@ -1633,7 +2361,14 @@ def main():
              ("pfdr-simplex", phase_pfdr_simplex, (p64,),
               ("stencil_fused_simplex",)),
              ("cp-simplex", phase_cp_simplex, (cp_ref,),
-              ("mincut_fused", "components_fused")))
+              ("mincut_fused", "components_fused")),
+             ("pfdr-mesh", phase_pfdr_mesh, (x_mesh64,),
+              ("circulant_fused",)),
+             ("pfdr-mesh-banded", phase_pfdr_mesh_banded, (x_mesh64,),
+              ("banded_fused", "banded_gather", "banded_scatter",
+               "solve_fused")),
+             ("pfdr-mesh-simplex", phase_pfdr_mesh_simplex, (p_mesh64,),
+              ("circulant_fused_simplex",)))
     f_ref = None
     for name, fn, args, needs in paths:
         reset_counts()
@@ -1649,6 +2384,7 @@ def main():
     check(all(v > 0 for v in launches.values()),
           f"a kernel was launched on no main path: {launches}")
     phase_profile()
+    profile_mesh()
 
     v_eeg, f2 = V_SIDE * V_SIDE, 2
     rv_big = max(ss_t["ms"])
@@ -1678,6 +2414,39 @@ def main():
             v_eeg * K_SIMPLEX * ((1 + 2 * f2) * 6 + 2 * f2 * 18
                                  + 4 * K_SIMPLEX + 6)),
     }
+    # slice 4, float32 on the mesh.  Index bytes of a banded edge list of
+    # e edges: eu, ev, the incidence offsets and slots (int32).
+    def index_bytes(e):
+        return 4 * (2 * e + v_eeg + 1 + 2 * e)
+
+    eb = bt["mesh"]["e"]
+    slots = cf_t["f"] * cf_t["vv"] + cf_t["rem"]
+    s_slots = cs_t["f"] * cs_t["vv"] + cs_t["rem"]
+    k = K_SIMPLEX
+    work.update({
+        # gather: x, eu, ev read, two [E] outputs; scatter: two [E] inputs,
+        # offsets and slots read, [V] written, one add per slot
+        "banded_gather": (4 * (v_eeg + 2 * eb + 2 * eb), 0),
+        "banded_scatter": (4 * (2 * eb + v_eeg + 1 + 2 * eb + v_eeg),
+                           2 * eb),
+        # 4 vertex inputs and x written, 7 edge inputs and zu, zv written
+        "banded_fused": (4 * (5 * v_eeg + 9 * eb) + index_bytes(eb),
+                         OPS_PER_SLOT * eb + 10 * v_eeg),
+        # over the family slots and the remainder, plus the offsets: 5 edge
+        # streams read (zu, zv, wu, w_d1u, th_d1; wv and w_d1v follow from
+        # wu, w_d1u and Gamma, as the TPU kernel derives them) and 2 written
+        "circulant_fused": (4 * (5 * v_eeg + 7 * slots + cf_t["f"])
+                            + index_bytes(cf_t["rem"]),
+                            OPS_PER_SLOT * slots + 10 * v_eeg),
+        # p, q, ga, ga_proj, prev read and p, prev written (K planes each),
+        # la_f; 5 K edge planes read (as above), 2 K written.  Per (vertex,
+        # label): the forward value (6), K projection passes (4 K), the
+        # tail (6)
+        "circulant_fused_simplex": (
+            4 * ((7 * k + 1) * v_eeg + 7 * k * s_slots + cs_t["f"])
+            + index_bytes(cs_t["rem"]),
+            k * (OPS_PER_SLOT * s_slots + (12 + 4 * k) * v_eeg)),
+    })
     rows = [
         dict(name="stencil_fused", source="stencil_fused.cu",
              replaces="stencil_fused.py:105", max_abs_err=st_err[
@@ -1709,6 +2478,9 @@ def main():
                  torch.float32], max_abs_err_f64=sf_err[torch.float64],
              main_path_max_abs_err=sfm["err_float32"],
              main_path_max_abs_err_f64=sfm["err_float64"],
+             mesh_max_abs_err=sfm["mesh_err_float32"],
+             mesh_max_abs_err_f64=sfm["mesh_err_float64"],
+             mesh_iterations_f64=sfm["mesh_it_float64"],
              ms=sfm["ms"], plain_ms=sfm["plain_ms"],
              shape=f"dense, rv={sfm['rv']} "
                    f"rv_cap={sfm['args'][5].shape[0]} "
@@ -1723,6 +2495,52 @@ def main():
              shape=f"{V_SIDE}x{V_SIDE} F=2 K={K_SIMPLEX}, one multi-label "
                    f"PFDR iteration"),
     ]
+    f32, f64 = torch.float32, torch.float64
+    for kern in ("gather", "scatter"):
+        mesh = bt["mesh"][kern]
+        rows.append(dict(
+            name=f"banded_{kern}", source="banded.cu",
+            replaces=f"banded.py:{293 if kern == 'gather' else 312}",
+            max_abs_err=max(bt["err"][(kern, gn, f32)]
+                            for gn in ("mesh", "star")),
+            max_abs_err_f64=max(bt["err"][(kern, gn, f64)]
+                                for gn in ("mesh", "star")),
+            ms=mesh["ms"], plain_ms=mesh["plain_ms"],
+            device_us=mesh["device_us"], library_ms=mesh["library_ms"],
+            library=("index_select on the concatenated endpoints"
+                     if kern == "gather" else
+                     "two index_add_ calls into zeros (float atomics: not "
+                     "deterministic)"),
+            star=dict(bt["star"][kern], v=bt["star"]["v"],
+                      e=bt["star"]["e"], long_rows=bt["star"]["long_rows"]),
+            shape=f"mesh V={v_eeg} E={eb} (banded order, padded), [V] "
+                  f"float32"))
+    rows += [
+        dict(name="banded_fused", source="banded_fused.cu",
+             replaces="banded_fused.py:165", max_abs_err=bf_err[f32],
+             max_abs_err_f64=bf_err[f64], ms=bf_t["ms"],
+             plain_ms=bf_t["plain_ms"], device_us=bf_t["device_us"],
+             shape=f"mesh V={v_eeg} E={bf_t['e']} (banded order, padded), "
+                   f"one PFDR stage"),
+        dict(name="circulant_fused", source="circulant_fused.cu",
+             replaces="circulant_fused.py:219",
+             max_abs_err=max(cf_err[(gn, f32)] for gn in ("mesh", "grid")),
+             max_abs_err_f64=max(cf_err[(gn, f64)]
+                                 for gn in ("mesh", "grid")),
+             ms=cf_t["ms"], plain_ms=cf_t["plain_ms"],
+             device_us=cf_t["device_us"],
+             shape=f"mesh F={cf_t['f']} VV={cf_t['vv']} + {cf_t['rem']} "
+                   f"remainder slots, one PFDR stage"),
+        dict(name="circulant_fused_simplex",
+             source="circulant_fused_simplex.cu",
+             replaces="circulant_fused_simplex.py:232",
+             max_abs_err=cs_err[f32], max_abs_err_f64=cs_err[f64],
+             ms=cs_t["ms"], plain_ms=cs_t["plain_ms"],
+             device_us=cs_t["device_us"],
+             shape=f"mesh F={cs_t['f']} VV={cs_t['vv']} + {cs_t['rem']} "
+                   f"remainder slots, K={K_SIMPLEX}, one multi-label PFDR "
+                   f"iteration"),
+    ]
     kernels = []
     for row in rows:
         b_ms, b_by = bound(*work[row["name"]])
@@ -1731,13 +2549,25 @@ def main():
             source="cp_pfdr_graph_d1_tpu_torch/csrc/" + row.pop("source"),
             replaces="cp_pfdr_graph_d1_tpu/ops/" + row.pop("replaces"),
             launches=launches[row["name"]], bound_ms=b_ms, bound_by=b_by,
-            library_ms=None, **{k: v for k, v in row.items()
-                                if k != "name"}))
+            library_ms=row.pop("library_ms", None),
+            **{k: v for k, v in row.items() if k != "name"}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
 
 
+def profile_only():
+    """``python3 chip_smoke.py --profile-mesh``: the mesh paths' profile
+    alone, in a fresh process."""
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    phase_env()
+    phase_build()
+    profile_mesh()
+
+
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:] == ["--profile-mesh"]:
+        profile_only()
+    else:
+        main()

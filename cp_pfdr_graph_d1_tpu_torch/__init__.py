@@ -18,6 +18,8 @@ import torch
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 
+from .banded_graph import BandedGraphD1  # noqa: E402
+from .circulant import CirculantGraphD1, strip_order  # noqa: E402
 from .config import CPOptions, Lipsch, PFDROptions  # noqa: E402
 from .graph import GraphD1  # noqa: E402
 from .operators import (DenseOp, DiagOp, GramOp, IdentityOp,  # noqa: E402
@@ -31,7 +33,8 @@ from .solvers.pfdr_simplex import (SimplexResult,  # noqa: E402
 from .stencil import StencilGraphD1  # noqa: E402
 
 __all__ = [
-    "CPOptions", "Lipsch", "PFDROptions", "GraphD1", "StencilGraphD1",
+    "BandedGraphD1", "CirculantGraphD1", "StencilGraphD1", "strip_order",
+    "CPOptions", "Lipsch", "PFDROptions", "GraphD1",
     "DenseOp", "DiagOp", "GramOp", "IdentityOp", "QuadOp", "make_operator",
     "PFDRResult", "VertexProx", "pfdr_quadratic_d1",
     "CPSimplexResult", "CPSimplexState", "cp_loss_d1_simplex",

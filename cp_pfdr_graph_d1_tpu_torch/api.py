@@ -7,8 +7,11 @@ the full solution ``x = rX[Cv]`` (``rX`` of shape [rV, K] for the
 multi-label entry); PFDR entries return ``(X, it, Obj, Dif)`` with ``X`` a
 tensor.  Every entry takes ``device`` (default ``"cuda"``); the CPU must be
 asked for by name.  The dtype is float64 when an input is float64, float32
-otherwise.  ``container="auto"`` means COO in the port; the circulant
-container is not ported yet and raises :class:`NotImplementedError`.
+otherwise.  The PFDR entries take ``container``: "coo", "circulant"
+(:class:`~.circulant.CirculantGraphD1`), or "auto", which picks the
+circulant container for tensors on a CUDA device when the graph has at
+least 4096 edges and at least 70 % of them fall on the 64 most frequent
+index offsets (:func:`~.circulant.offset_coverage`), and COO otherwise.
 """
 from __future__ import annotations
 
@@ -17,6 +20,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from .circulant import CirculantGraphD1, offset_coverage
 from .config import CPOptions, Lipsch, PFDROptions
 from .graph import GraphD1
 from .operators import DenseOp, DiagOp, GramOp, IdentityOp
@@ -59,11 +63,23 @@ def _cp_options(CP_difTol, CP_itMax, PFDR_rho, PFDR_condMin, PFDR_difRcd,
 
 def _graph(Eu, Ev, La_d1, num_vertices, dtype, device,
            container: str = "coo"):
+    """Builds the graph container: "coo" (:class:`GraphD1`), "circulant"
+    (:class:`CirculantGraphD1`) or "auto" (the circulant container for a
+    CUDA device, at least 4096 edges and an offset coverage of at least
+    0.7, as the JAX package's rule with "TPU" read as "CUDA device"; COO
+    otherwise)."""
+    if container == "auto":
+        if (torch.device(device).type == "cuda"
+                and len(np.asarray(Eu)) >= 4096
+                and offset_coverage(Eu, Ev) >= 0.7):
+            container = "circulant"
+        else:
+            container = "coo"
     if container == "circulant":
-        raise NotImplementedError(
-            "the circulant container is not ported yet: ROADMAP queue 1 "
-            "item 9")
-    if container not in ("coo", "auto"):
+        return CirculantGraphD1.create(Eu, Ev, La_d1,
+                                       num_vertices=num_vertices,
+                                       dtype=dtype, device=device)
+    if container != "coo":
         raise ValueError(f"unknown container {container!r}")
     return GraphD1.create(Eu, Ev, La_d1, num_vertices=num_vertices,
                           dtype=dtype, device=device)

@@ -14,6 +14,8 @@ import dataclasses
 import numpy as np
 import torch
 
+from .banded_graph import BandedGraphD1
+from .circulant import CirculantGraphD1
 from .config import CPOptions, PFDROptions
 from .graph import GraphD1
 from .operators import DenseOp, DiagOp, GramOp, IdentityOp
@@ -28,14 +30,17 @@ def _tensor(a, device, dtype=None):
     return torch.as_tensor(np.array(a), dtype=dtype, device=device)
 
 
+def _torch_dtype(a: np.ndarray):
+    return torch.from_numpy(np.zeros(0, a.dtype)).dtype
+
+
 def graph(eu, ev, la_d1, num_vertices: int, device="cuda") -> GraphD1:
     """:class:`GraphD1` from a JAX ``GraphD1``'s ``eu``, ``ev``, ``la_d1``
     and ``num_vertices``; the weights keep their dtype."""
     la = np.asarray(la_d1)
     return GraphD1.create(np.asarray(eu), np.asarray(ev), la,
                           num_vertices=int(num_vertices),
-                          dtype=torch.from_numpy(np.zeros(0, la.dtype)).dtype,
-                          device=device)
+                          dtype=_torch_dtype(la), device=device)
 
 
 def stencil_graph(la_d1, field_shape, shifts, wrap,
@@ -45,6 +50,36 @@ def stencil_graph(la_d1, field_shape, shifts, wrap,
     ``wrap``."""
     return StencilGraphD1(_tensor(la_d1, device), tuple(field_shape),
                           tuple(tuple(s) for s in shifts), tuple(wrap))
+
+
+def banded_graph(eu, ev, la_d1, num_vertices: int, tile: int = 1024,
+                 mode: str = "auto", device="cuda") -> BandedGraphD1:
+    """:class:`BandedGraphD1` from the host edge arrays and creation
+    arguments of a JAX ``BandedGraphD1`` (``BandedGraphD1.create``'s
+    ``eu``, ``ev``, ``la_d1``, ``num_vertices``, ``tile``; its
+    ``round_wd8`` shapes only the TPU window and has no counterpart); the
+    edge order, which a solve state follows, is the JAX container's.
+    Passing the JAX container's own (sorted, padded) ``eu``/``ev``/``la_d1``
+    gives the same container.  The JAX modes "full" and "interpret" mean
+    "auto" here."""
+    la = np.asarray(la_d1)
+    return BandedGraphD1.create(
+        np.asarray(eu), np.asarray(ev), la, num_vertices=int(num_vertices),
+        dtype=_torch_dtype(la), tile=int(tile),
+        mode="jnp" if mode == "jnp" else "auto", device=device)
+
+
+def circulant_graph(eu, ev, la_d1, num_vertices: int, max_families: int = 64,
+                    min_count=None, device="cuda") -> CirculantGraphD1:
+    """:class:`CirculantGraphD1` from the host edge arrays and creation
+    arguments of a JAX ``CirculantGraphD1`` (``CirculantGraphD1.create``'s
+    ``eu``, ``ev``, ``la_d1``, ``num_vertices``, ``max_families``,
+    ``min_count``); the edge order is the JAX container's."""
+    la = np.asarray(la_d1)
+    return CirculantGraphD1.create(
+        np.asarray(eu), np.asarray(ev), la, num_vertices=int(num_vertices),
+        dtype=_torch_dtype(la),
+        max_families=int(max_families), min_count=min_count, device=device)
 
 
 def operator(kind: str, array=None, device="cuda"):

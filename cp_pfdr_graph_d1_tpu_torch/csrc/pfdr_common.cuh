@@ -41,6 +41,21 @@ __device__ __forceinline__ int shifted_cell(int i, int j, int dy, int dx,
   return wrap_index(i + dy, h) * w + wrap_index(j + dx, w);
 }
 
+// Rows of an incidence list (a vertex's endpoint slots) longer than this
+// are summed by a block each: a hub vertex walked by one thread would
+// serialize the whole launch.  The container's padding edges, weight-0
+// copies of its last edge, make such hubs on any graph.
+constexpr int kLongRow = 64;
+
+// the contiguous run [lo, hi) of a long row's slots [beg, end) that this
+// thread of the block sums, in slot order (empty when lo >= end)
+__device__ __forceinline__ void long_row_run(int beg, int end, int &lo,
+                                             int &hi) {
+  const int run = (end - beg + blockDim.x - 1) / blockDim.x;
+  lo = beg + threadIdx.x * run;
+  hi = min(lo + run, end);
+}
+
 enum VertexKind { kVertexNone = 0, kVertexL1 = 1, kVertexBounds = 2 };
 
 // forward step P = 2 X - Gamma grad (:463-464).  Every evaluation of a
@@ -89,6 +104,89 @@ __device__ __forceinline__ T vertex_prox(T a, T th_l1, int kind,
   }
   if (positivity) return a > T(0) ? a : T(0);
   return a;
+}
+
+// end of a quadratic stage at one vertex: the vertex prox of the average
+// acc, the new iterate written to *xo, and the two evolution terms
+// (x_new - x)^2 and x_new^2
+template <typename T>
+__device__ __forceinline__ void stage_vertex_tail(T acc, T th_l1, T xc,
+                                                  int kind, int positivity,
+                                                  T lo, T hi, T *xo, T &num,
+                                                  T &den) {
+  const T xn = vertex_prox(acc, th_l1, kind, positivity, lo, hi);
+  *xo = xn;
+  const T d = xn - xc;
+  num = d * d;
+  den = xn * xn;
+}
+
+enum LossKind { kLossLinear = 0, kLossQuadratic = 1, kLossKL = 2 };
+
+// loss of the multi-label (simplex) PFDR, keyed on al as in
+// PFDR_graph_loss_d1_simplex.cpp:144-156
+template <typename T>
+struct SimplexLoss {
+  int kind;
+  int has_laf;
+  T al_k;  // al / K
+  T al_1;  // 1 - al
+};
+
+template <typename T>
+inline SimplexLoss<T> make_simplex_loss(double al, int k, int has_laf) {
+  SimplexLoss<T> ls;
+  ls.kind = al == 0.0 ? kLossLinear : (al == 1.0 ? kLossQuadratic : kLossKL);
+  ls.has_laf = has_laf;
+  ls.al_k = T(al / k);
+  ls.al_1 = T(1.0 - al);
+  return ls;
+}
+
+// forward value 2 p - Gamma g of one label at one vertex, with the loss
+// gradient written as ops/stencil_fused_simplex.py writes it.  Every
+// evaluation goes through this one function, so two threads that need the
+// same vertex's value get the same bits.
+template <typename T>
+__device__ __forceinline__ T simplex_forward(T p, T q, T laf, T ga,
+                                             const SimplexLoss<T> &ls) {
+  T g;
+  if (ls.kind == kLossLinear) {
+    g = -q;
+  } else {
+    if (ls.kind == kLossQuadratic)
+      g = p - q;
+    else
+      g = -ls.al_1 * (ls.al_k + ls.al_1 * q) / (ls.al_k + ls.al_1 * p);
+    if (ls.has_laf) g = g * laf;
+  }
+  return T(2) * p - ga * g;
+}
+
+// Michelot projection onto the simplex {p >= 0, sum p = 1} in the metric
+// diag(m) (proj_simplex_metric.cpp:19-83): K passes over the active set,
+// in registers for a compile-time K (KA == K) or local memory otherwise.
+// Returns the multiplier la; the projection is p_k = max(acc_k - la m_k, 0).
+template <typename T, int KA>
+__device__ __forceinline__ T michelot_multiplier(const T (&acc)[KA],
+                                                 const T (&m)[KA], int K) {
+  bool act[KA];
+#pragma unroll
+  for (int k = 0; k < K; ++k) act[k] = true;
+  T la = T(0);
+  for (int pass = 0; pass < K; ++pass) {
+    T sx = act[0] ? acc[0] : T(0);
+    T sm = act[0] ? m[0] : T(0);
+#pragma unroll
+    for (int k = 1; k < K; ++k) {
+      sx = sx + (act[k] ? acc[k] : T(0));
+      sm = sm + (act[k] ? m[k] : T(0));
+    }
+    la = (sx - T(1)) / (sm > T(0) ? sm : T(1));
+#pragma unroll
+    for (int k = 0; k < K; ++k) act[k] = act[k] && (acc[k] - la * m[k] > T(0));
+  }
+  return la;
 }
 
 // Sums (a, b) over the block in a fixed order: shuffle tree inside each

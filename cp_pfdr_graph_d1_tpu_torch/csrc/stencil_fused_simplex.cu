@@ -43,36 +43,6 @@ namespace cp_pfdr {
 constexpr int kSimplexBlock = 256;
 constexpr int kMaxLabels = 32;
 
-enum LossKind { kLossLinear = 0, kLossQuadratic = 1, kLossKL = 2 };
-
-template <typename T>
-struct SimplexLoss {
-  int kind;
-  int has_laf;
-  T al_k;  // al / K
-  T al_1;  // 1 - al
-};
-
-// forward value 2 p - Gamma g of one label at one vertex, with the loss
-// gradient written as ops/stencil_fused_simplex.py writes it (:34-47).
-// Every evaluation goes through this one function, so two threads that
-// need the same vertex's value get the same bits.
-template <typename T>
-__device__ __forceinline__ T simplex_forward(T p, T q, T laf, T ga,
-                                             const SimplexLoss<T> &ls) {
-  T g;
-  if (ls.kind == kLossLinear) {
-    g = -q;
-  } else {
-    if (ls.kind == kLossQuadratic)
-      g = p - q;
-    else
-      g = -ls.al_1 * (ls.al_k + ls.al_1 * q) / (ls.al_k + ls.al_1 * p);
-    if (ls.has_laf) g = g * laf;
-  }
-  return T(2) * p - ga * g;
-}
-
 template <typename T, int KT>
 __global__ void __launch_bounds__(kSimplexBlock)
 simplex_stage_kernel(const T *__restrict__ p, const T *__restrict__ q,
@@ -135,27 +105,11 @@ simplex_stage_kernel(const T *__restrict__ p, const T *__restrict__ q,
         acc[k] = acc[k] + wv[e2] * zvn2;
       }
     }
-    // Michelot projection onto the simplex in the metric ga_proj: K passes
+    // Michelot projection onto the simplex in the metric ga_proj
     T m[KA];
-    bool act[KA];
 #pragma unroll
-    for (int k = 0; k < K; ++k) {
-      m[k] = ga_proj[(int64_t)k * hw + c];
-      act[k] = true;
-    }
-    T la = T(0);
-    for (int pass = 0; pass < K; ++pass) {
-      T sx = act[0] ? acc[0] : T(0);
-      T sm = act[0] ? m[0] : T(0);
-#pragma unroll
-      for (int k = 1; k < K; ++k) {
-        sx = sx + (act[k] ? acc[k] : T(0));
-        sm = sm + (act[k] ? m[k] : T(0));
-      }
-      la = (sx - T(1)) / (sm > T(0) ? sm : T(1));
-#pragma unroll
-      for (int k = 0; k < K; ++k) act[k] = act[k] && (acc[k] - la * m[k] > T(0));
-    }
+    for (int k = 0; k < K; ++k) m[k] = ga_proj[(int64_t)k * hw + c];
+    const T la = michelot_multiplier<T, KA>(acc, m, K);
     T best = T(0);
     int lab = 0;
 #pragma unroll
@@ -217,11 +171,7 @@ int simplex_stage(const T *const *in, T *const *out, T *partials, T *sums,
   if (make_shifts(f, shifts, sh) != 0 || h < 1 || w < 1 || k < 1 ||
       k > kMaxLabels)
     return -1;
-  SimplexLoss<T> ls;
-  ls.kind = al == 0.0 ? kLossLinear : (al == 1.0 ? kLossQuadratic : kLossKL);
-  ls.has_laf = has_laf;
-  ls.al_k = T(al / k);
-  ls.al_1 = T(1.0 - al);
+  const SimplexLoss<T> ls = make_simplex_loss<T>(al, k, has_laf);
   const int hw = h * w;
   const dim3 grid((hw + kSimplexBlock - 1) / kSimplexBlock);
   cudaStream_t s = static_cast<cudaStream_t>(stream);

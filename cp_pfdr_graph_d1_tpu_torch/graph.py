@@ -12,10 +12,10 @@ The table is built on the tensors' device from the per-vertex incidence
 list (:func:`incidence_csr`).  It holds ``V x max degree`` entries, so a
 hub vertex makes it wide: a contracted cut-pursuit graph of ``rv``
 components with one component adjacent to all others holds ``rv**2``
-(4096 components: 134 MB of int64).  The JAX package switches to its
-banded container in that case
-(``solvers/cut_pursuit_common.make_reduced_container``); the port waits
-for that container (ROADMAP queue 1 item 9).
+(4096 components: 134 MB of int64).  Cut-pursuit hands such reduced
+graphs to :class:`~.banded_graph.BandedGraphD1`, whose kernels walk the
+incidence list itself (``solvers/cut_pursuit_common
+.make_reduced_container``), as the JAX package does.
 """
 from __future__ import annotations
 

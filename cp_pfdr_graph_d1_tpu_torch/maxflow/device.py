@@ -13,9 +13,9 @@ within ``tol`` — a certificate, not a heuristic.
 :func:`_pdhg_min_cut` is the plain PyTorch loop on any graph container and
 the plain version of the stencil kernel :mod:`..ops.mincut_fused`.  On a
 CUDA device a cut runs only through that kernel, so a COO graph on the card
-raises (its kernel is ROADMAP queue 1 item 9); on the CPU this loop is the
-route.  The directed and duplex relaxations are not ported yet (ROADMAP
-queue 1 item 6).
+raises: the JAX package runs the cut on a COO graph as plain jnp, with no
+TPU kernel to port; on the CPU this loop is the route.  The directed and
+duplex relaxations are not ported yet (ROADMAP queue 1 item 6).
 """
 from __future__ import annotations
 
@@ -113,8 +113,8 @@ def min_cut_device(num_vertices: int, eu, ev, w, c, *, graph=None,
         if torch.device(device).type == "cuda":
             raise NotImplementedError(
                 "a device min-cut on a COO graph has no kernel on the card "
-                "yet (ROADMAP queue 1 item 9); pass a StencilGraphD1 or "
-                "device='cpu'")
+                "(the JAX package runs it as plain jnp, with no TPU kernel "
+                "to port); pass a StencilGraphD1 or device='cpu'")
         g = GraphD1.create(eu, ev, w, num_vertices=num_vertices,
                            dtype=dtype, device=device)
         tol_abs = tol * max(big, 1.0)

@@ -24,6 +24,19 @@ def box_clamp(x, lo, hi):
     return torch.clamp(x, lo, hi)
 
 
+def vertex_prox_plain(a, th_l1, vkind: str, positivity: bool, lo: float,
+                      hi: float):
+    """Vertex prox of the quadratic PFDR stage as the kernels take it: l1
+    soft threshold (+ positivity), box clamp, or none (+ positivity)."""
+    if vkind == "l1":
+        return soft_threshold(a, th_l1, positivity)
+    if vkind == "bounds":
+        return box_clamp(a, lo, hi)
+    if positivity:
+        return torch.clamp(a, min=0)
+    return a
+
+
 def d1_pair_prox(pu, pv, w_u, w_v, thresh):
     """Backward step of the pairwise d1 term on a coupled pair with
     normalized weights ``w_u + w_v == 1``: the weighted average plus a

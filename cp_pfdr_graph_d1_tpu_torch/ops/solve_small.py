@@ -23,6 +23,7 @@ import torch
 
 from .. import _build
 from ..graph import csr_table, incidence_csr
+from .prox import vertex_prox_plain
 
 # opt-in dynamic shared memory of one Hopper block (232,448 bytes), less
 # room for the kernel's static shared variables
@@ -80,16 +81,7 @@ def solve_small_plain(op_kind: str, op, aty, ga, th_l1, x0, z0, ec, eu, ev,
         zu = zu + rho * ((avg + wdv * shrunk) - x[eu])
         zv = zv + rho * ((avg - wdu * shrunk) - x[ev])
         a = torch.cat([wu * zu, wv * zv, zu.new_zeros(1)])[table].sum(dim=1)
-        if vkind == "l1":
-            xn = torch.clamp(a - th_l1, min=0)
-            if not positivity:
-                xn = xn + torch.clamp(a + th_l1, max=0)
-        elif vkind == "bounds":
-            xn = torch.clamp(a, lo, hi)
-        elif positivity:
-            xn = torch.clamp(a, min=0)
-        else:
-            xn = a
+        xn = vertex_prox_plain(a, th_l1, vkind, positivity, lo, hi)
         xn = torch.where(live, xn, torch.zeros_like(xn))
         delta = xn - x
         num = (delta * delta).sum()

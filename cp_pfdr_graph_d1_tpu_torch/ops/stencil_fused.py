@@ -15,6 +15,7 @@ from typing import Tuple
 import torch
 
 from .. import _build
+from .prox import vertex_prox_plain
 
 # must equal kMaxFamilies in csrc/stencil_fused.cu
 MAX_FAMILIES = 16
@@ -53,16 +54,7 @@ def stencil_iteration_plain(x, grad, ga, th_l1, zu, zv, wu, wv, w_d1u,
         zv_out.append(zvf)
         acc = acc + wu[f] * zuf
         acc = acc + _roll2(wv[f] * zvf, dy, dx)
-    if vkind == "l1":
-        xn = torch.clamp(acc - th_l1, min=0)
-        if not positivity:
-            xn = xn + torch.clamp(acc + th_l1, max=0)
-    elif vkind == "bounds":
-        xn = torch.clamp(acc, lo, hi)
-    elif positivity:
-        xn = torch.clamp(acc, min=0)
-    else:
-        xn = acc
+    xn = vertex_prox_plain(acc, th_l1, vkind, positivity, lo, hi)
     delta = xn - x
     return (xn, torch.stack(zu_out), torch.stack(zv_out),
             (delta * delta).sum(), (xn * xn).sum())

@@ -35,15 +35,11 @@ def _roll3(x, dy: int, dx: int):
     return torch.roll(x, (dy, dx), dims=(1, 2))
 
 
-def stencil_simplex_iteration_plain(p, q, la_f, ga, ga_proj, prev, zu, zv,
-                                    wu, wv, w_d1u, w_d1v, th_d1, *,
-                                    shifts: Tuple, rho: float, al: float,
-                                    has_laf: bool, label_mode: bool):
-    """Plain PyTorch version of the kernel (same arguments and results as
-    :func:`fused_stencil_simplex_iteration`), written as the JAX package's
-    Pallas kernel body is."""
+def simplex_forward_plain(p, q, la_f, ga, *, al: float, has_laf: bool):
+    """Forward step ``2 p - Gamma g`` on label planes (label axis first;
+    ``la_f`` a single plane), with the loss gradient of
+    ``solvers.pfdr_simplex._loss_grad``."""
     k = p.shape[0]
-    # loss gradient (see solvers.pfdr_simplex._loss_grad)
     if al == 0.0:
         g = -q
     else:
@@ -55,26 +51,15 @@ def stencil_simplex_iteration_plain(p, q, la_f, ga, ga_proj, prev, zu, zv,
             g = -al_1 * (al_k + al_1 * q) / (al_k + al_1 * p)
         if has_laf:
             g = g * la_f[0]
-    fp = 2.0 * p - ga * g
-    acc = torch.zeros_like(p)
-    zu_out, zv_out = [], []
-    for f, (dy, dx) in enumerate(shifts):
-        fpv = _roll3(fp, -dy, -dx)
-        pv = _roll3(p, -dy, -dx)
-        au = fp - zu[f]
-        av = fpv - zv[f]
-        avg = w_d1u[f] * au + w_d1v[f] * av
-        diff = au - av
-        shrunk = torch.sign(diff) * torch.clamp(diff.abs() - th_d1[f], min=0)
-        zuf = zu[f] + rho * ((avg + w_d1v[f] * shrunk) - p)
-        zvf = zv[f] + rho * ((avg - w_d1u[f] * shrunk) - pv)
-        zu_out.append(zuf)
-        zv_out.append(zvf)
-        acc = acc + wu[f] * zuf
-        acc = acc + _roll3(wv[f] * zvf, dy, dx)
-    # Michelot simplex projection in the metric ga_proj, K passes, the label
-    # sums in the kernel's order
-    one = torch.ones((), dtype=p.dtype, device=p.device)
+    return 2.0 * p - ga * g
+
+
+def simplex_tail_plain(acc, ga_proj, prev, *, label_mode: bool):
+    """Michelot simplex projection of the averaged label planes ``acc`` in
+    the metric ``ga_proj`` (K passes, the label sums in the kernels' order)
+    and the stopping sum: ``(p_new, prev_new, dif_sum)``."""
+    k = acc.shape[0]
+    one = torch.ones((), dtype=acc.dtype, device=acc.device)
     active = torch.ones_like(acc)
     la = torch.zeros_like(acc[0])
     for _ in range(k):
@@ -93,14 +78,39 @@ def stencil_simplex_iteration_plain(p, q, la_f, ga, ga_proj, prev, zu, zv,
             better = pn[c] > best
             best = torch.where(better, pn[c], best)
             lab = torch.where(better, torch.full_like(lab, float(c)), lab)
-        dif = (lab != prev[0]).to(p.dtype).sum()
-        prev_new = lab[None]
-    else:
-        s = (pn[0] - prev[0]).abs()
-        for c in range(1, k):
-            s = s + (pn[c] - prev[c]).abs()
-        dif = s.sum()
-        prev_new = pn
+        return pn, lab[None], (lab != prev[0]).to(acc.dtype).sum()
+    s = (pn[0] - prev[0]).abs()
+    for c in range(1, k):
+        s = s + (pn[c] - prev[c]).abs()
+    return pn, pn, s.sum()
+
+
+def stencil_simplex_iteration_plain(p, q, la_f, ga, ga_proj, prev, zu, zv,
+                                    wu, wv, w_d1u, w_d1v, th_d1, *,
+                                    shifts: Tuple, rho: float, al: float,
+                                    has_laf: bool, label_mode: bool):
+    """Plain PyTorch version of the kernel (same arguments and results as
+    :func:`fused_stencil_simplex_iteration`), written as the JAX package's
+    Pallas kernel body is."""
+    fp = simplex_forward_plain(p, q, la_f, ga, al=al, has_laf=has_laf)
+    acc = torch.zeros_like(p)
+    zu_out, zv_out = [], []
+    for f, (dy, dx) in enumerate(shifts):
+        fpv = _roll3(fp, -dy, -dx)
+        pv = _roll3(p, -dy, -dx)
+        au = fp - zu[f]
+        av = fpv - zv[f]
+        avg = w_d1u[f] * au + w_d1v[f] * av
+        diff = au - av
+        shrunk = torch.sign(diff) * torch.clamp(diff.abs() - th_d1[f], min=0)
+        zuf = zu[f] + rho * ((avg + w_d1v[f] * shrunk) - p)
+        zvf = zv[f] + rho * ((avg - w_d1u[f] * shrunk) - pv)
+        zu_out.append(zuf)
+        zv_out.append(zvf)
+        acc = acc + wu[f] * zuf
+        acc = acc + _roll3(wv[f] * zvf, dy, dx)
+    pn, prev_new, dif = simplex_tail_plain(acc, ga_proj, prev,
+                                           label_mode=label_mode)
     return pn, prev_new, torch.stack(zu_out), torch.stack(zv_out), dif
 
 

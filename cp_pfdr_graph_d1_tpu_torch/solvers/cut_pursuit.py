@@ -49,7 +49,8 @@ from .cut_pursuit_common import (bucket, build_reduced_graph,
                                  component_representatives,
                                  connected_components, host_reduce_dense,
                                  host_reduce_diag, host_reduce_gram,
-                                 machine_eps, np64, pad_reduced_graph)
+                                 machine_eps, make_reduced_container, np64,
+                                 pad_reduced_graph)
 from .pfdr_quadratic import (VertexProx, initial_precondition,
                              pfdr_quadratic_d1)
 
@@ -540,8 +541,8 @@ def cp_quadratic_d1(op: QuadOp, obs, graph: GraphD1, *,
             rv_cap = max(bucket(num_comp), 128)
             e_cap = max(bucket(len(rg.eu)), 128)
             reu, rev, rla = pad_reduced_graph(rg, rv_cap, e_cap)
-            rgraph = GraphD1.create(reu, rev, rla, num_vertices=rv_cap,
-                                    dtype=tdtype, device=device)
+            rgraph = make_reduced_container(reu, rev, rla, rv_cap, tdtype,
+                                            device)
             x0 = np.zeros(rv_cap, dtype)
             x0[:num_comp] = rx0
             x, it_d = _reduce_solve_small(
@@ -585,11 +586,8 @@ def cp_quadratic_d1(op: QuadOp, obs, graph: GraphD1, *,
         # -- staged route: reduced operator on the device + PFDR loop --------
         rv_cap = bucket(num_comp)
         reu, rev, rla = pad_reduced_graph(rg, rv_cap, bucket(len(rg.eu)))
-        # the JAX package switches to its banded container when hub
-        # components make the incidence table wide; that container is not
-        # ported yet (ROADMAP queue 1 item 9)
-        rgraph = GraphD1.create(reu, rev, rla, num_vertices=rv_cap,
-                                dtype=tdtype, device=device)
+        rgraph = make_reduced_container(reu, rev, rla, rv_cap, tdtype,
+                                        device)
         r_op, _, ry, lipsch = _reduce_operator(
             kind, op_arr, obs, torch.as_tensor(cv, device=device), rv_cap,
             pre_at)

@@ -20,6 +20,9 @@ import scipy.sparse as sp
 import torch
 from scipy.sparse import csgraph
 
+from ..banded_graph import BandedGraphD1
+from ..graph import GraphD1
+
 
 def bucket(n: int, minimum: int = 8) -> int:
     """Next power-of-two capacity >= n."""
@@ -100,6 +103,35 @@ def pad_reduced_graph(rg: ReducedGraph, rv_cap: int, re_cap: int):
     ev = np.concatenate([rg.ev, spread])
     la = np.concatenate([rg.la_d1, np.zeros(pad, rg.la_d1.dtype)])
     return eu, ev, la
+
+
+def make_reduced_container(reu, rev, rla, rv_cap: int, dtype, device):
+    """Graph container of a reduced PFDR solve, from numpy arrays or from
+    tensors on ``device``.
+
+    :class:`~..graph.GraphD1` builds a ``[rV, max degree]`` incidence
+    table, which a contracted graph with a hub component (one component
+    adjacent to thousands) makes ``rV**2`` entries.  When that table would
+    hold more than a few times the edge count, the degree-agnostic
+    :class:`~..banded_graph.BandedGraphD1` takes the graph, as in the JAX
+    package."""
+    on_device = isinstance(reu, torch.Tensor)
+    if on_device:
+        deg = torch.bincount(torch.cat([reu, rev]), minlength=rv_cap)
+        max_deg = int(deg.max()) if deg.numel() else 1
+    else:
+        deg = np.bincount(np.concatenate([reu, rev]), minlength=rv_cap)
+        max_deg = int(deg.max(initial=1))
+    scan = rv_cap * max(max_deg, 1)
+    if scan <= max(4 * len(reu), 1 << 16):
+        if on_device:
+            return GraphD1(reu, rev, rla, rv_cap)
+        return GraphD1.create(reu, rev, rla, num_vertices=rv_cap,
+                              dtype=dtype, device=device)
+    if on_device:
+        reu, rev, rla = (a.cpu().numpy() for a in (reu, rev, rla))
+    return BandedGraphD1.create(reu, rev, rla, num_vertices=rv_cap,
+                                dtype=dtype, device=device)
 
 
 def machine_eps(dtype, dif_tol: float) -> float:

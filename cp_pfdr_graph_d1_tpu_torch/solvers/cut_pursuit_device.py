@@ -61,7 +61,7 @@ from ..ops.power_iter import dense_operator_norm
 from ..stencil import StencilGraphD1
 from .cut_pursuit import (CPResult, CPState, _kernel_solve, _objective,
                           _reduce_dense, _reduce_diag, _reduce_gram)
-from .cut_pursuit_common import bucket, machine_eps
+from .cut_pursuit_common import bucket, machine_eps, make_reduced_container
 from .pfdr_quadratic import VertexProx, pfdr_quadratic_d1
 
 # above this component count the [V, rV] one-hot contractions give way to
@@ -83,9 +83,10 @@ def device_cut_supported(graph, obs, duplex: bool):
     if obs.is_cuda and not isinstance(graph, StencilGraphD1):
         raise NotImplementedError(
             "cut='device' on a CUDA device takes a StencilGraphD1: its "
-            "min-cut and components kernels are stencil kernels, and those "
-            "of the COO and banded containers are ROADMAP queue 1 item 9; "
-            "pass cut='host', or CPU tensors")
+            "min-cut and components kernels are stencil kernels, and the "
+            "JAX package has no TPU kernel for a cut on a COO, banded or "
+            "circulant graph (its PDHG cut there is plain jnp), so there is "
+            "none to port; pass cut='host', or CPU tensors")
 
 
 def _direction_costs(op: QuadOp, obs, graph: GraphD1, x, active, la_l1, *,
@@ -287,9 +288,10 @@ def _reduced_problem(op: QuadOp, obs, cv, num_comp: int, rv_cap: int,
 
 def contract(graph: GraphD1, active, eps: float):
     """Components and contracted graph of the current active set:
-    ``(cv, num_comp, firsts, rgraph)`` with ``rgraph`` a :class:`GraphD1`
-    over ``bucket(num_comp)`` vertices on the device (two host reads: the
-    component and the reduced-edge counts)."""
+    ``(cv, num_comp, firsts, rgraph)`` with ``rgraph`` a container over
+    ``bucket(num_comp)`` vertices on the device
+    (:func:`.cut_pursuit_common.make_reduced_container`; three host reads:
+    the component and reduced-edge counts, the largest reduced degree)."""
     cv, num_comp_t, firsts = _device_components(graph, active)
     lo_s, hi_s, w_s, flags, re_count = _contract_sort(cv, graph, active)
     num_comp, re_count = (int(v) for v in torch.stack(
@@ -297,7 +299,8 @@ def contract(graph: GraphD1, active, eps: float):
     rv_cap = bucket(num_comp)
     reu, rev, rla = _contract_pad(lo_s, hi_s, w_s, flags, num_comp, eps,
                                   rv_cap, bucket(re_count))
-    return cv, num_comp, firsts, GraphD1(reu, rev, rla, rv_cap)
+    return cv, num_comp, firsts, make_reduced_container(
+        reu, rev, rla, rv_cap, rla.dtype, rla.device)
 
 
 def problem_setup(num_v: int, obs, la_l1, positivity: bool, bounds):

@@ -34,7 +34,8 @@ from .. import maxflow, native
 from ..config import CPOptions, numpy_dtype
 from ..graph import GraphD1
 from .cut_pursuit_common import (bucket, build_reduced_graph,
-                                 connected_components, machine_eps, np64,
+                                 connected_components, machine_eps,
+                                 make_reduced_container, np64,
                                  pad_reduced_graph)
 from .cut_pursuit_device import _run_sums
 from .pfdr_simplex import d1_objective, loss_objective, pfdr_loss_d1_simplex
@@ -218,8 +219,8 @@ def cp_loss_d1_simplex(graph: GraphD1, q, *, al: float,
                 it_max=inner_it_max, p0=rp_start)
             return rp_new.astype(dtype)
         reu, rev, rla = pad_reduced_graph(rg, rv_cap, bucket(len(rg.eu)))
-        rgraph = GraphD1.create(reu, rev, rla, num_vertices=rv_cap,
-                                dtype=q.dtype, device=device)
+        rgraph = make_reduced_container(reu, rev, rla, rv_cap, q.dtype,
+                                        device)
         popt = (opt.pfdr if inner_it_max == opt.pfdr.it_max
                 else dataclasses.replace(opt.pfdr, it_max=inner_it_max))
         res = pfdr_loss_d1_simplex(

@@ -12,8 +12,9 @@ loop ``CP_PFDR_graph_loss_d1_simplex.cpp:186-926``:
   min-cuts, warm-started per label from the previous CP iteration's cut: on
   a stencil graph through the kernel of :mod:`..ops.mincut_fused` (its
   plain version for CPU tensors), on a COO graph through the plain loop of
-  :mod:`..maxflow.device`, on the CPU only (the COO kernels are ROADMAP
-  queue 1 item 9).  The Kolmogorov-Zabih pairwise decomposition is
+  :mod:`..maxflow.device`, on the CPU only (the JAX package runs that cut
+  as plain jnp: there is no TPU kernel to port).  The Kolmogorov-Zabih
+  pairwise decomposition is
   re-expressed as symmetric weights plus unary credits, as in the host
   loop.  The certificates stack on the device and are read once per CP
   iteration.  A cut that misses its certificate within ``cut_it_max``
@@ -45,7 +46,8 @@ from ..graph import GraphD1
 from ..maxflow.device import _pdhg_min_cut
 from ..ops.mincut_fused import cut_problem, fused_pdhg_min_cut
 from ..stencil import StencilGraphD1
-from .cut_pursuit_common import bucket, machine_eps
+from .cut_pursuit_common import (bucket, machine_eps,
+                                 make_reduced_container)
 from .cut_pursuit_device import (CONTINUE_FACTOR, _contract_pad,
                                  _contract_sort, _device_components,
                                  _run_sums, device_cut_supported)
@@ -245,7 +247,7 @@ def cp_loss_d1_simplex_device(graph: GraphD1, q, *, al: float,
     """Device-resident multi-label cut-pursuit solve (same contract as
     :func:`.cut_pursuit_simplex.cp_loss_d1_simplex`); see the module
     docstring.  ``opt.verbose`` prints, per CP iteration, the components,
-    the reduced edges, the reduced incidence table's width, the PFDR
+    the reduced edges, the reduced graph's container, the PFDR
     iterations, the PDHG steps of each cut, the cuts continued past
     ``cut_it_max`` and the host time of the cuts and of the reduced solve.
     ``record`` (a list, stencil graphs) receives the inputs of the
@@ -334,7 +336,8 @@ def cp_loss_d1_simplex_device(graph: GraphD1, q, *, al: float,
         rv_cap = bucket(num_comp)
         reu, rev, rla = _contract_pad(lo_s, hi_s, w_s, flags, num_comp, eps,
                                       rv_cap, bucket(re_count))
-        rgraph = GraphD1(reu, rev, rla, rv_cap)
+        rgraph = make_reduced_container(reu, rev, rla, rv_cap, q.dtype,
+                                        q.device)
 
         # -- reduced observations (:733-766) --------------------------------
         qsum = _run_sums(q, cv, rv_cap)
@@ -368,8 +371,8 @@ def cp_loss_d1_simplex_device(graph: GraphD1, q, *, al: float,
             objs.append(objective(p_full))
         if opt.verbose:
             print(f"CP-simplex it {it} (device): {num_comp} components, "
-                  f"{re_count} reduced edges, incidence width "
-                  f"{rgraph.incidence.shape[1]}, PFDR it {res.it}, cut "
+                  f"{re_count} reduced edges, {type(rgraph).__name__}, "
+                  f"PFDR it {res.it}, cut "
                   f"steps {cut_steps}, cuts continued {continued}, "
                   f"{int(active.sum())} active edges, dif {dif:.3g}; cuts "
                   f"{t_cut * 1e3:.1f} ms, reduced solve {t_red * 1e3:.1f} "

@@ -14,11 +14,14 @@ Numerics follow the reference exactly
 The loop is a Python loop over eager PyTorch operations.  The stopping test
 reads the evolution back to the host every iteration (one device
 synchronisation per iteration on CUDA), so the iteration count equals the
-JAX package's.  On a stencil graph with the tensors on a CUDA device the
-edge and vertex stage of each iteration is one hand-written kernel
-(:mod:`..ops.stencil_fused`); the gradient ``A^t(A x - y)`` stays a matrix
-product outside it, as in the JAX package.  The JAX package's banded
-whole-solve branch waits for the banded container (ROADMAP queue 1 item 9).
+JAX package's.  On a stencil, circulant or banded graph with the tensors
+on a CUDA device the edge and vertex stage of each iteration is one
+hand-written kernel (:mod:`..ops.stencil_fused`, :mod:`..ops.circulant_fused`,
+:mod:`..ops.banded_fused`); the gradient ``A^t(A x - y)`` stays a matrix
+product outside it, as in the JAX package.  An unmonitored solve on a
+:class:`~..banded_graph.BandedGraphD1` (no ``monitor``, ``verbose`` or
+``dif_rcd``) runs whole in one launch of :mod:`..ops.solve_fused`, as the
+JAX package's banded whole-solve branch does.
 """
 from __future__ import annotations
 
@@ -27,10 +30,12 @@ from typing import NamedTuple
 
 import torch
 
+from ..banded_graph import BandedGraphD1
 from ..config import Lipsch, PFDROptions
 from ..graph import GraphD1
-from ..operators import QuadOp
-from ..ops.prox import d1_pair_prox
+from ..operators import DenseOp, DiagOp, GramOp, IdentityOp, QuadOp
+from ..ops.prox import d1_pair_prox, vertex_prox_plain
+from ..ops.solve_fused import fused_pfdr_solve
 from ..ops.stencil_fused import MAX_FAMILIES
 
 
@@ -178,19 +183,6 @@ def recondition(op: QuadOp, obs, graph: GraphD1, la_l1, rho, cond_min,
     return new, zu, zv
 
 
-def vertex_prox(x, vprox: VertexProx, th_l1):
-    if vprox.kind == "l1":
-        pos = torch.clamp(x - th_l1, min=0)
-        if vprox.positivity:
-            return pos
-        return pos + torch.clamp(x + th_l1, max=0)
-    if vprox.kind == "bounds":
-        return torch.clamp(x, vprox.lo, vprox.hi)
-    if vprox.positivity:
-        return torch.clamp(x, min=0)
-    return x
-
-
 def _tv(graph, x):
     xu, xv = graph.gather_endpoints(x)
     return graph.edge_allsum(graph.la_d1 * (xu - xv).abs())
@@ -207,21 +199,77 @@ def _full_obj(op: QuadOp, x, obs, graph: GraphD1, la_l1, vprox: VertexProx):
 
 
 def fused_route(opt: PFDROptions, graph, obs) -> bool:
-    """Whether the iteration of a stencil graph goes through the fused
-    kernel's wrapper: "auto" when the tensors lie on a CUDA device, "on"
-    always.  A stencil the kernel cannot take raises rather than running
-    the staged loop in its place."""
-    if opt.fused == "off" or not hasattr(graph, "fused_iteration"):
+    """Whether the iteration goes through a fused stage kernel's wrapper
+    (stencil, circulant and banded containers): "auto" when the tensors lie
+    on a CUDA device, "on" always.  A stencil the kernel cannot take raises
+    rather than running the staged loop in its place."""
+    if (opt.fused == "off" or not hasattr(graph, "fused_iteration")
+            or not getattr(graph, "supports_fused", True)):
         return False
     if not (opt.fused == "on" or obs.is_cuda):
         return False
-    f = len(graph.shifts)
+    f = len(graph.shifts) if hasattr(graph, "shifts") else 0
     if f > MAX_FAMILIES:
         raise ValueError(
             f"stencil of {f} shift families; the stencil_fused kernel takes "
             f"at most {MAX_FAMILIES} (pass PFDROptions(fused='off') for the "
             f"staged loop)")
     return True
+
+
+def _whole_solve_kind(op: QuadOp, graph) -> str | None:
+    """Operator kind of the whole-solve kernel (:mod:`..ops.solve_fused`)
+    for a banded graph, or None."""
+    if not isinstance(graph, BandedGraphD1) or not graph.supports_fused:
+        return None
+    if isinstance(op, DenseOp):
+        return "dense"
+    if isinstance(op, GramOp):
+        return "gram"
+    if isinstance(op, (DiagOp, IdentityOp)):
+        return "diag"
+    return None
+
+
+def whole_solve_inputs(op: QuadOp, obs, graph: BandedGraphD1,
+                       vprox: VertexProx, pre: Precond, x0, zu0, zv0,
+                       opt: PFDROptions, op_kind: str, it0: int = 0):
+    """``(args, kw)`` of the :func:`..ops.solve_fused.fused_pfdr_solve`
+    call of :func:`_whole_solve`.  The banded edge order is the order that
+    kernel takes (sorted stably by the smaller endpoint)."""
+    nv = graph.num_vertices
+    if op_kind == "dense":
+        mat, aty = op.a, op.apply_t(obs)
+    elif op_kind == "gram":
+        mat, aty = op.gram, obs
+    else:
+        mat = (torch.ones(nv, dtype=obs.dtype, device=obs.device)
+               if isinstance(op, IdentityOp) else op.diag)
+        aty = obs
+    eps_mach = torch.finfo(obs.dtype).eps
+    eps = opt.dif_tol if 0 < opt.dif_tol < eps_mach else eps_mach
+    ec = torch.stack([pre.wu, pre.wv, pre.w_d1u, pre.w_d1v, pre.th_d1])
+    args = (op_kind, mat.contiguous(), aty.contiguous(), pre.ga.contiguous(),
+            pre.th_l1.contiguous(), x0.contiguous(), torch.stack([zu0, zv0]),
+            ec, graph.eu, graph.ev)
+    kw = dict(rv=nv, it_max=opt.it_max, rho=float(opt.rho), vkind=vprox.kind,
+              positivity=vprox.positivity, lo=float(vprox.lo),
+              hi=float(vprox.hi), dif_tol2=float(opt.dif_tol) ** 2, eps=eps,
+              it0=it0)
+    return args, kw
+
+
+def _whole_solve(op: QuadOp, obs, graph: BandedGraphD1, vprox: VertexProx,
+                 pre: Precond, x0, zu0, zv0, opt: PFDROptions, op_kind: str,
+                 it0: int = 0):
+    """The complete solve in one launch of :func:`..ops.solve_fused
+    .fused_pfdr_solve` (its plain version for CPU tensors), from the
+    iterate ``x0`` and auxiliary pairs ``zu0``/``zv0`` after ``it0``
+    iterations: ``(x, zu, zv, it, dif)``."""
+    args, kw = whole_solve_inputs(op, obs, graph, vprox, pre, x0, zu0, zv0,
+                                  opt, op_kind, it0)
+    x, z, it, dif = fused_pfdr_solve(*args, **kw)
+    return x, z[0], z[1], int(it), dif
 
 
 def pfdr_quadratic_d1(op: QuadOp, obs, graph: GraphD1, *,
@@ -287,6 +335,17 @@ def pfdr_quadratic_d1(op: QuadOp, obs, graph: GraphD1, *,
         dif_rcd2_t = scalar(dif_rcd2)
         it = 0
     fused = fused_route(opt, graph, obs)
+    whole_kind = _whole_solve_kind(op, graph) if fused else None
+    if (whole_kind is not None and not monitor and opt.verbose == 0
+            and opt.dif_rcd == 0):
+        x, zu, zv, it, dif = _whole_solve(
+            op, obs, graph, vprox, pre, x, zu, zv, opt, whole_kind, it0=it)
+        res = PFDRResult(x=x, it=it, obj=obs.new_zeros(1),
+                         dif=obs.new_zeros(1))
+        if return_state:
+            return res, PFDRSolveState(x=x, zu=zu, zv=zv, pre=pre, x_prev=x,
+                                       dif=dif, dif_rcd2=scalar(0.0), it=it)
+        return res
 
     n_trace = opt.it_max + 1 if monitor else 1
     obj_trace = torch.zeros(n_trace, dtype=dtype, device=device)
@@ -323,7 +382,8 @@ def pfdr_quadratic_d1(op: QuadOp, obs, graph: GraphD1, *,
             # weighted average back to the iterate (:491-497)
             x_new = graph.edge_to_vertex_sum(pre.wu * zu, pre.wv * zv)
             # vertex prox (:499-512)
-            x_new = vertex_prox(x_new, vprox, pre.th_l1)
+            x_new = vertex_prox_plain(x_new, pre.th_l1, vprox.kind,
+                                      vprox.positivity, vprox.lo, vprox.hi)
             delta = x_new - x_prev
             num = graph.vertex_allsum(delta * delta)
             den = graph.vertex_allsum(x_new * x_new)

@@ -21,14 +21,15 @@ the Michelot simplex projection in the metric ``Gamma``
 
 Two loops compute the same iteration.  The staged loop runs eager PyTorch
 operations on any graph container.  On a :class:`~..stencil.StencilGraphD1`
-whose tensors lie on a CUDA device (``PFDROptions.fused="auto"``), or with
-``fused="on"``, each iteration is one launch of the hand-written kernel
-:mod:`..ops.stencil_fused_simplex` (its plain version for CPU tensors); that
-loop carries ``[K, H, W]`` label planes and ``[F, K, H, W]`` edge planes,
-converts once at entry and once at exit, and between launches for
-monitoring, progress lines and reconditioning.  Both loops read the
-evolution back to the host once per iteration, so the iteration count is
-the JAX package's.
+or a :class:`~..circulant.CirculantGraphD1` whose tensors lie on a CUDA
+device (``PFDROptions.fused="auto"``), or with ``fused="on"``, each
+iteration is one launch of the hand-written kernel
+:mod:`..ops.stencil_fused_simplex` or :mod:`..ops.circulant_fused_simplex`
+(their plain versions for CPU tensors); that loop carries the container's
+label planes, converts once at entry and once at exit, and between
+launches for monitoring, progress lines and reconditioning.  Both loops
+read the evolution back to the host once per iteration, so the iteration
+count is the JAX package's.
 """
 from __future__ import annotations
 
@@ -232,21 +233,23 @@ def _ml_labels(p):
 
 
 def fused_simplex_route(opt: PFDROptions, graph, q) -> bool:
-    """Whether the solve runs the kernel loop: on a stencil graph, "auto"
-    when the tensors lie on a CUDA device, "on" always.  A stencil the
-    kernel cannot take raises rather than running the staged loop in its
-    place."""
+    """Whether the solve runs the kernel loop: on a container with a fused
+    multi-label stage (stencil or circulant), "auto" when the tensors lie
+    on a CUDA device, "on" always.  A container the kernel cannot take
+    raises rather than running the staged loop in its place."""
     if opt.fused == "off" or not hasattr(graph, "fused_simplex_iteration"):
         return False
     if not (opt.fused == "on" or q.is_cuda):
         return False
-    f, k = len(graph.shifts), q.shape[-1]
+    k = q.shape[-1]
+    f = len(graph.shifts) if hasattr(graph, "shifts") else 0
     if f > MAX_FAMILIES or k > MAX_LABELS:
         raise ValueError(
-            f"stencil of {f} shift families and {k} labels; the "
-            f"stencil_fused_simplex kernel takes at most {MAX_FAMILIES} "
-            f"families and {MAX_LABELS} labels (pass "
-            f"PFDROptions(fused='off') for the staged loop)")
+            f"{type(graph).__name__} with {k} labels"
+            + (f" and {f} shift families" if f else "")
+            + f"; the fused multi-label kernels take at most {MAX_LABELS} "
+            f"labels (stencils at most {MAX_FAMILIES} families); pass "
+            f"PFDROptions(fused='off') for the staged loop")
     return True
 
 
@@ -254,35 +257,22 @@ def _simplex_fused_loop(graph, q, p0, la_f, pre: SimplexPrecond, *,
                         al: float, opt: PFDROptions, has_laf: bool,
                         label_mode: bool, monitor: bool = False, state0=None,
                         return_state: bool = False, step=None):
-    """Whole-iteration kernel loop on a stencil graph, resumable through
-    ``state0``.  It carries ``[K, H, W]`` label planes and ``[F, K, H, W]``
-    edge planes; the objective of ``monitor``, the progress lines of
-    ``verbose`` and the reconditioning of ``dif_rcd > 0`` convert the
-    planes between launches and compute what the staged loop computes.
+    """Whole-iteration kernel loop on a stencil or circulant container,
+    resumable through ``state0``.  It carries the container's label planes
+    (``[K, H, W]`` and ``[F, K, H, W]`` on a stencil, ``[K, V]`` and
+    ``[K, E]`` on a circulant container: ``graph.vertex_planes`` and
+    ``graph.edge_planes``); the objective of ``monitor``, the progress
+    lines of ``verbose`` and the reconditioning of ``dif_rcd > 0`` convert
+    the planes between launches and compute what the staged loop computes.
     ``step`` replaces the iteration (by default
     ``graph.fused_simplex_iteration``, the kernel's wrapper)."""
-    h, w = graph.field_shape
-    f = len(graph.shifts)
-    k = q.shape[-1]
     vcount = graph.num_vertices
     dtype, device = q.dtype, q.device
     rho = float(opt.rho)
     if step is None:
         step = graph.fused_simplex_iteration
-
-    def tv(a):  # [V, n] -> [n, H, W]
-        return a.T.reshape(-1, h, w).contiguous()
-
-    def vt(a):  # [n, H, W] -> [V, n]
-        return a.reshape(-1, h * w).T.contiguous()
-
-    def te(a):  # [E, K] (family-major E = F V) -> [F, K, H, W]
-        return (a.reshape(f, h * w, k).permute(0, 2, 1)
-                .reshape(f, k, h, w).contiguous())
-
-    def ev(a):  # [F, K, H, W] -> [E, K]
-        return (a.reshape(f, k, h * w).permute(0, 2, 1)
-                .reshape(-1, k).contiguous())
+    tv, vt = graph.vertex_planes, graph.vertex_rows
+    te, ev = graph.edge_planes, graph.edge_rows
 
     def planes(pre):
         return (tv(pre.ga), tv(pre.ga_proj),
@@ -299,16 +289,15 @@ def _simplex_fused_loop(graph, q, p0, la_f, pre: SimplexPrecond, *,
         zu0, zv0 = graph.gather_endpoints(p0)
     p3 = tv(p0)
     q3 = tv(q)
-    laf3 = (la_f.reshape(1, h, w).contiguous() if has_laf
-            else torch.zeros((1, h, w), dtype=dtype, device=device))
+    laf3 = tv(la_f[:, None] if has_laf
+              else torch.zeros((vcount, 1), dtype=dtype, device=device))
     ga3, gap3, edges = planes(pre)
     zu, zv = te(zu0), te(zv0)
     if state0 is not None:
         prev = tv(state0.prev)
         dif, dif_rcd, it = state0.dif, state0.dif_rcd, int(state0.it)
     else:
-        prev = (_ml_labels(p0).to(dtype).reshape(1, h, w)
-                if label_mode else p3)
+        prev = tv(_ml_labels(p0).to(dtype)[:, None]) if label_mode else p3
         dif = torch.tensor(max(opt.dif_tol, opt.dif_rcd), dtype=dtype,
                            device=device)
         dif_rcd = torch.tensor(opt.dif_rcd, dtype=dtype, device=device)

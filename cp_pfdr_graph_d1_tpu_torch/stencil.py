@@ -168,3 +168,25 @@ class StencilGraphD1(GraphD1):
             p, q, la_f, ga, ga_proj, prev, zu, zv, wu, wv, w_d1u, w_d1v,
             th_d1, shifts=self.shifts, rho=rho, al=al, has_laf=has_laf,
             label_mode=label_mode)
+
+    # label planes of the multi-label kernel loop
+
+    def vertex_planes(self, a):
+        """[V, n] rows -> [n, H, W] planes."""
+        return a.T.reshape(-1, *self.field_shape).contiguous()
+
+    def vertex_rows(self, a):
+        """[n, H, W] planes -> [V, n] rows."""
+        return a.reshape(-1, self.num_vertices).T.contiguous()
+
+    def edge_planes(self, a):
+        """[E, K] rows (family-major E = F V) -> [F, K, H, W] planes."""
+        f, k = len(self.shifts), a.shape[-1]
+        return (a.reshape(f, self.num_vertices, k).permute(0, 2, 1)
+                .reshape(f, k, *self.field_shape).contiguous())
+
+    def edge_rows(self, a):
+        """[F, K, H, W] planes -> [E, K] rows."""
+        f, k = a.shape[:2]
+        return (a.reshape(f, k, self.num_vertices).permute(0, 2, 1)
+                .reshape(-1, k).contiguous())

@@ -157,14 +157,18 @@ def test_slice_end_to_end_on_stencil():
 
 
 def test_import_leaves_jax_out():
-    code = ("import sys, cp_pfdr_graph_d1_tpu_torch, "
-            "cp_pfdr_graph_d1_tpu_torch.api, cp_pfdr_graph_d1_tpu_torch.convert, "
-            "cp_pfdr_graph_d1_tpu_torch.solvers.cut_pursuit_simplex_device;"
-            "print('jax' in sys.modules)")
+    port = "cp_pfdr_graph_d1_tpu_torch"
+    modules = ["api", "convert", "solvers.cut_pursuit_simplex_device",
+               "banded_graph", "circulant", "ops.banded", "ops.banded_fused",
+               "ops.circulant_fused", "ops.circulant_fused_simplex"]
+    code = (f"import sys, {port}, "
+            + ", ".join(f"{port}.{m}" for m in modules)
+            + "; print('jax' in sys.modules, "
+              "'cp_pfdr_graph_d1_tpu' in sys.modules)")
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, check=True, timeout=120, cwd=root)
-    assert out.stdout.strip() == "False"
+    assert out.stdout.strip() == "False False"
 
 
 def test_build_sources_lie_in_the_port(monkeypatch):
@@ -193,8 +197,9 @@ def test_build_sources_lie_in_the_port(monkeypatch):
     maxflow._get_lib()
     port = _build.PKG_DIR.resolve()
     names = {p.name for p in built}
-    assert {"stencil_fused_simplex.cu", "pfdr.cpp", "pfdr_simplex.cpp",
-            "mincut.cpp"} <= names
+    assert {"stencil_fused_simplex.cu", "banded.cu", "banded_fused.cu",
+            "circulant_fused.cu", "circulant_fused_simplex.cu", "pfdr.cpp",
+            "pfdr_simplex.cpp", "mincut.cpp"} <= names
     outside = [str(p) for p in built
                if not p.resolve().is_relative_to(port) or not p.exists()]
     assert not outside, f"sources outside the port: {outside}"
@@ -202,7 +207,8 @@ def test_build_sources_lie_in_the_port(monkeypatch):
 
 def test_unported_routes_raise():
     # the device cut and the chained loop are ported; the duplex device cut
-    # is what stays open of queue 1 item 6
+    # is what stays open of queue 1 item 6.  The circulant container is
+    # ported (queue 1 item 9): the entry that raised for it now solves
     assert T.CPOptions(cut="device", chain="on").chain == "on"
     with pytest.raises(NotImplementedError, match="queue 1 item 6"):
         T.solvers.cut_pursuit.cp_quadratic_d1(
@@ -211,7 +217,7 @@ def test_unported_routes_raise():
             T.GraphD1.create([0], [1], [1.0], num_vertices=3,
                              dtype=torch.float64, device="cpu"),
             la_l1=0.1, duplex=True, opt=T.CPOptions(cut="device"))
-    with pytest.raises(NotImplementedError, match="queue 1 item 9"):
-        tapi.pfdr_quadratic_d1_l1(np.ones(2), np.ones((2, 3)), [0], [1],
-                                  [1.0], container="circulant",
-                                  device="cpu")
+    out = tapi.pfdr_quadratic_d1_l1(np.ones(2), np.ones((2, 3)), [0], [1],
+                                    [1.0], container="circulant",
+                                    device="cpu")
+    assert out.X.shape == (3,) and bool(torch.isfinite(out.X).all())
