@@ -64,7 +64,23 @@ It imports nothing of JAX.  Phases, one or more lines each:
    ``BandedGraphD1`` monitored (``banded_fused``) and unmonitored (one
    ``solve_fused`` launch), and the K = 4 multi-label PFDR of
    ``bench_unstructured_simplex`` on the circulant container;
-12. where the time goes (``torch.profiler``).
+12. where the time goes (``torch.profiler``);
+13. slice 5, distribution: ``halo_fused`` against its plain version (one
+   rank's iteration on a 512 x 2048 row block of a 2048 x 2048 field, the
+   neighbours' strips cut from the plain iteration of the whole field's
+   blocks, so no processes: float64 and float32, halo depth 1 and 2, the
+   first, a middle and the last block), then the main path ``pfdr-halo``:
+   ``parallel.pfdr_quadratic_d1_halo`` on the 2048 x 2048 field under the
+   EEG operator (N = 91), 500 iterations, against the single-card
+   ``stencil_fused`` solve, at P = 1 in this process (an NCCL group of one
+   rank), and at P = 2 and 4 in spawned ranks that share the card over
+   gloo (strips staged through pinned host memory); with two cards or
+   more also one NCCL rank per card.  The same spawned ranks run the other
+   distributed entries once at P = 2 against their single-card
+   counterparts (``pfdr-halo-simplex``, ``pfdr-dp``, ``cp-dist``,
+   ``cp-sharded``, ``cp-sharded-simplex``; cut as ``p2_cuts`` prints).
+   The single-card solves these are held against run before the counted
+   window, and the P = 1 busy share is profiled after it.
 
 The line before the last is the JSON kernel report; the last line is the
 JSON result.  Any failed check raises, and the script then exits with a
@@ -577,8 +593,9 @@ def counters():
                                                 circulant_fused,
                                                 circulant_fused_simplex,
                                                 components_fused,
-                                                mincut_fused, solve_fused,
-                                                solve_small, stencil_fused,
+                                                halo_fused, mincut_fused,
+                                                solve_fused, solve_small,
+                                                stencil_fused,
                                                 stencil_fused_simplex)
     return {"stencil_fused": stencil_fused.fused_stencil_iteration,
             "solve_small": solve_small.fused_pfdr_solve_small,
@@ -592,7 +609,8 @@ def counters():
             "banded_fused": banded_fused.fused_banded_iteration,
             "circulant_fused": circulant_fused.fused_circulant_iteration,
             "circulant_fused_simplex":
-                circulant_fused_simplex.fused_circulant_simplex_iteration}
+                circulant_fused_simplex.fused_circulant_simplex_iteration,
+            "halo_fused": halo_fused.halo_fused_iteration}
 
 
 def reset_counts():
@@ -2302,6 +2320,793 @@ def profile_mesh(device="cuda"):
                           if k.startswith("Memcpy")), flush=True)
 
 
+# ---------------------------------------------------------------------------
+# slice 5: distribution — the row-sharded (halo) stencil PFDR and its kernel
+# ---------------------------------------------------------------------------
+
+HALO_SIDE = 2048          # 2048 x 2048 field: V = 4,194,304
+HALO_SHARDS = (1, 2, 4)
+HALO_FAMILIES = {1: {(0, 1): 0.35, (1, 0): 0.35},
+                 2: {(0, 1): 0.1, (1, 0): 0.12, (2, 0): 0.05, (1, -1): 0.07}}
+HALO_ITERS = 500
+HALO_SEED = 5
+# halo kernel against plain, relative to the field's largest magnitude: one
+# stage, differing by FMA contraction and summation order only
+HALO_F64_TOL = 1e-12
+HALO_F32_TOL = 1e-5
+
+
+def halo_stage_fields(side, shifts, dtype, device, seed=HALO_SEED):
+    """Inputs of one quadratic PFDR stage on a whole side x side field:
+    ``(x, grad, ga, th_l1)`` [H, W] and the seven [F, H, W] edge fields
+    (zu, zv, wu, wv, w_d1u, w_d1v, th_d1), from a seeded generator on the
+    card, in the value ranges a solve gives them."""
+    import torch
+    gen = torch.Generator(device=device).manual_seed(seed)
+    f = len(shifts)
+
+    def rnd(*shape, lo=-1.0, hi=1.0):
+        u = torch.rand(*shape, generator=gen, device=device,
+                       dtype=torch.float64)
+        return (lo + (hi - lo) * u).to(dtype)
+
+    vert = (rnd(side, side), rnd(side, side), rnd(side, side, lo=0.05),
+            rnd(side, side, lo=0.0, hi=0.1))
+    w_d1u = rnd(f, side, side, lo=0.0)
+    edges = (rnd(f, side, side), rnd(f, side, side),
+             rnd(f, side, side, lo=0.0, hi=0.5),
+             rnd(f, side, side, lo=0.0, hi=0.5), w_d1u, 1.0 - w_d1u,
+             rnd(f, side, side, lo=0.0, hi=0.3))
+    return vert + edges
+
+
+def phase_halo_fused(device="cuda"):
+    """``halo_fused`` against its plain version: one rank's iteration on a
+    row block of the 2048 x 2048 field (P = 4 blocks of 512 rows), the
+    neighbours' strips of both exchange rounds cut from the plain iteration
+    of the whole field's blocks (``ops.halo_fused.ring_iteration_plain``),
+    so no processes are needed.  float64 and float32, halo depth 1 and 2,
+    the first, a middle and the last block; the four vertex proxes on the
+    hd = 2 float64 case.  The new iterate, zu, zv and the two contribution
+    strips sent are held against the plain block iteration, and the block's
+    rows of the whole-field plain stencil iteration, relative to the
+    field's largest magnitude."""
+    import torch
+    from cp_pfdr_graph_d1_tpu_torch.ops import halo_fused as hf
+    from cp_pfdr_graph_d1_tpu_torch.ops.stencil_fused import \
+        stencil_iteration_plain
+    p_n = 4
+    hb = HALO_SIDE // p_n
+    errs, errs_abs = {}, {}
+    timing = {}
+    for dtype in (torch.float64, torch.float32):
+        tol = HALO_F64_TOL if dtype == torch.float64 else HALO_F32_TOL
+        for hd, sw in HALO_FAMILIES.items():
+            shifts = tuple(sw)
+            fields = halo_stage_fields(HALO_SIDE, shifts, dtype, device)
+            proxes = (vertex_proxes() if (dtype, hd) == (torch.float64, 2)
+                      else vertex_proxes()[:1])
+            for vp in proxes:
+                kw = dict(shifts=shifts, rho=1.5, vkind=vp.kind,
+                          positivity=vp.positivity, lo=float(vp.lo),
+                          hi=float(vp.hi))
+                ring = hf.ring_iteration_plain(*fields, num_shards=p_n, **kw)
+                whole = stencil_iteration_plain(*fields, **kw)
+                worst = {}
+                for b in (0, 1, p_n - 1):
+                    rows = slice(b * hb, (b + 1) * hb)
+                    blk = [a[..., rows, :].contiguous() for a in fields]
+                    ex = hf.ScriptedExchange(ring[b][1])
+                    before = hf.halo_fused_iteration.launches
+                    out = hf.halo_fused_iteration(*blk, hd=hd, exchange=ex,
+                                                  **kw)
+                    check(device == "cpu"
+                          or hf.halo_fused_iteration.launches - before == 5,
+                          "halo_fused: not five launches per iteration")
+                    check(device == "cpu" or out[0].is_cuda,
+                          "halo_fused output not on the card")
+                    plain = ring[b][0]
+                    # the strips this block sent in round 2, as its
+                    # neighbours received them
+                    ctr_plain = (ring[(b + 1) % p_n][1][1][0],
+                                 ring[(b - 1) % p_n][1][1][1])
+                    pairs = {"x": [(out[0], plain[0])],
+                             "zu": [(out[1], plain[1])],
+                             "zv": [(out[2], plain[2])],
+                             "strips": [(ex.sent[1][0], ctr_plain[0]),
+                                        (ex.sent[1][1], ctr_plain[1])],
+                             "sums": list(zip(out[3:], plain[3:])),
+                             "whole-field": [(out[0], whole[0][rows]),
+                                             (out[1], whole[1][:, rows]),
+                                             (out[2], whole[2][:, rows])]}
+                    for key, prs in pairs.items():
+                        for k, p in prs:
+                            e = max_err(k, p)
+                            if key != "sums":
+                                errs_abs[dtype] = max(errs_abs.get(dtype, 0.0),
+                                                      e)
+                            e /= max(float(p.abs().max()), 1e-30)
+                            worst[key] = max(worst.get(key, 0.0), e)
+                name = f"{vp.kind}{'+pos' if vp.positivity else ''}"
+                top = max(worst.values())
+                errs[(dtype, hd)] = max(errs.get((dtype, hd), 0.0), top)
+                check(top <= tol, f"halo_fused {dtype} hd={hd} {name}: "
+                      f"rel errs {worst} > {tol}")
+                print(f"[halo_fused] {str(dtype)[6:]} hd={hd} F={len(shifts)}"
+                      f" {name:7s} blocks 0, 1, {p_n - 1} of {p_n} "
+                      f"({hb}x{HALO_SIDE}), max|kernel-plain|/max|plain|: "
+                      + ", ".join(f"{k} {v:.2e}" for k, v in worst.items())
+                      + f" (tol {tol:g}; whole-field: against the block's "
+                      f"rows of the whole-field plain stencil iteration)",
+                      flush=True)
+            if dtype == torch.float32 and device == "cuda":
+                b = 1
+                rows = slice(b * hb, (b + 1) * hb)
+                blk = [a[..., rows, :].contiguous() for a in fields]
+                kw = dict(shifts=shifts, rho=1.5, vkind="l1",
+                          positivity=True, lo=-np.inf, hi=np.inf)
+                ring = hf.ring_iteration_plain(*fields, num_shards=p_n, **kw)
+                replay = hf.ScriptedExchange(ring[b][1], cycle=True)
+
+                def kern():
+                    return hf.halo_fused_iteration(*blk, hd=hd,
+                                                   exchange=replay, **kw)
+
+                def plain():
+                    return hf.halo_iteration_plain(*blk, hd=hd,
+                                                   exchange=replay, **kw)
+
+                t = dict(ms=cuda_ms(kern, 200), plain_ms=cuda_ms(plain, 50))
+                t["device_us"], per, _ = device_profile(kern, 100)
+                t["plain_device_us"] = device_profile(plain, 20)[0]
+                t["f"] = len(shifts)
+                per = {k.split("(")[0].split("::")[-1].split("<")[0]: v
+                       for k, v in per.items()}
+                t["kernels"] = {k: round(v, 3) for k, v in per.items()}
+                timing[hd] = t
+                print(f"[halo_fused] float32 hd={hd} F={len(shifts)} block "
+                      f"{hb}x{HALO_SIDE} l1+pos, per iteration (exchanges "
+                      f"replayed, no processes): kernels {t['ms'] * 1e3:.2f}"
+                      f" us between CUDA events ({t['device_us']:.2f} us of "
+                      f"device time: "
+                      + ", ".join(f"{k} {v:.2f}" for k, v in per.items())
+                      + f"), plain {t['plain_ms'] * 1e3:.2f} us "
+                      f"({t['plain_device_us']:.2f} us of device time)",
+                      flush=True)
+            del fields, ring
+    return errs, errs_abs, timing
+
+
+N_HALO = N_OBS            # the EEG operator's 91 rows over the whole field
+LA_L1_HALO = 1e-3
+
+
+def halo_problem(side, dtype, num_shards, device="cuda"):
+    """The image-scale halo problem: a ``side`` x ``side`` field under the
+    EEG operator (N = 91 rows, standard normal over sqrt(N), made on the
+    card from a seeded generator, so every process makes the same one),
+    four constant blobs, families (0, 1) and (1, 0) of weight 0.35.
+    Returns ``(graph, a, y, lip, problem)``: the single-card
+    ``StencilGraphD1``, A [N, V] and y on the card, the Lipschitz bound,
+    and the ``HaloShardedProblem`` of ``num_shards`` row blocks (its A a
+    view of ``a``)."""
+    import torch
+    from cp_pfdr_graph_d1_tpu_torch import StencilGraphD1
+    from cp_pfdr_graph_d1_tpu_torch.parallel import shard_stencil_problem
+    v = side * side
+    gen = torch.Generator(device=device).manual_seed(HALO_SEED)
+    a = (torch.randn(N_HALO, v, generator=gen, device=device,
+                     dtype=torch.float32) / np.sqrt(N_HALO)).to(dtype)
+    x_true = torch.zeros(side, side, dtype=torch.float64, device=device)
+    for k in range(4):
+        i0, j0 = (side * (1 + 2 * (k // 2))) // 4, (side * (1 + 2 * (k % 2))) // 4
+        x_true[i0 - side // 16:i0 + side // 16,
+               j0 - side // 16:j0 + side // 16] = 0.5 + 0.4 * k
+    noise = torch.randn(N_HALO, generator=gen, device=device,
+                        dtype=torch.float32).double()
+    y = (a.double() @ x_true.reshape(-1) + 0.01 * noise).to(dtype)
+    aa = a.double() @ a.double().T
+    lip = float(torch.linalg.eigvalsh(aa)[-1])
+    del aa
+    g = StencilGraphD1.create((side, side), HALO_FAMILIES[1], dtype=dtype,
+                              device=device)
+    return g, a, y, lip, shard_stencil_problem(a, y.cpu().numpy(), g,
+                                               num_shards)
+
+
+def halo_options(iters):
+    from cp_pfdr_graph_d1_tpu_torch import PFDROptions, VertexProx
+    return VertexProx(kind="l1"), PFDROptions(rho=1.5, dif_tol=0.0,
+                                              it_max=iters)
+
+
+def busy_share(fn, device="cuda"):
+    """Device busy share of one call of ``fn``: the device time of its
+    kernels and copies (torch.profiler) over its host-clock time (None on
+    the CPU)."""
+    if device == "cpu":
+        return None
+    dev_us, _, wall_us = device_profile(fn, 1)
+    return dev_us / wall_us
+
+
+def sync(device):
+    import torch
+    if device != "cpu":
+        torch.cuda.synchronize()
+
+
+def halo_busy(mesh, side, iters, device="cuda"):
+    """This rank's device busy share of an ``iters``-iteration
+    ``pfdr_quadratic_d1_halo`` solve per dtype (None on the CPU)."""
+    import torch
+    from cp_pfdr_graph_d1_tpu_torch.parallel import pfdr_quadratic_d1_halo
+    busy = {}
+    for dtype in (torch.float32, torch.float64):
+        _, _, _, lip, prob = halo_problem(side, dtype, mesh.size, device)
+        vp, opt = halo_options(iters)
+        busy[str(dtype)[6:]] = busy_share(lambda: pfdr_quadratic_d1_halo(
+            prob, mesh, opt=opt, device=device, la_l1=LA_L1_HALO, vprox=vp,
+            lipsch=lip), device)
+        del prob
+    return busy
+
+
+def halo_solves(mesh, side, iters, profile_iters=0, device="cuda"):
+    """This rank's ``pfdr_quadratic_d1_halo`` solves in float32 and float64
+    (``halo_problem``, ``iters`` iterations at dif_tol = 0): per dtype the
+    iteration count, us per iteration, the halo kernels' launches in the
+    solve, and (on rank 0) the gathered x; then, with ``profile_iters``,
+    the device busy share of a ``profile_iters``-iteration solve
+    (``halo_busy``; None without)."""
+    import torch
+    from cp_pfdr_graph_d1_tpu_torch.ops import halo_fused as hf
+    from cp_pfdr_graph_d1_tpu_torch.parallel import pfdr_quadratic_d1_halo
+    out = dict(backend=mesh.backend, size=mesh.size,
+               staged=mesh.staged(torch.empty(1, device=device)))
+    for dtype in (torch.float32, torch.float64):
+        _, _, _, lip, prob = halo_problem(side, dtype, mesh.size, device)
+        vp, opt = halo_options(iters)
+        launches0 = hf.halo_fused_iteration.launches
+        sync(device)
+        t0 = time.perf_counter()
+        res = pfdr_quadratic_d1_halo(prob, mesh, opt=opt, device=device,
+                                     la_l1=LA_L1_HALO, vprox=vp, lipsch=lip)
+        sync(device)
+        secs = time.perf_counter() - t0
+        out[str(dtype)[6:]] = dict(
+            it=res.it, us_per_it=secs * 1e6 / max(res.it, 1), busy=None,
+            launches=hf.halo_fused_iteration.launches - launches0,
+            x=res.x.cpu().numpy() if mesh.rank == 0 else None)
+        del prob, res
+    if profile_iters:
+        for dt, b in halo_busy(mesh, side, profile_iters, device).items():
+            out[dt]["busy"] = b
+    return out
+
+
+def shared_card_ranks(mesh, side, iters, profile_iters, device, sizes,
+                      with_p2):
+    """The work of the ranks that share one card: the halo solves at each
+    ring size of ``sizes`` (the first n ranks as a group, largest first;
+    the others wait), then, with ``with_p2``, the P = 2 runs of the other
+    distributed entries (``p2_paths``)."""
+    from cp_pfdr_graph_d1_tpu_torch.parallel import make_mesh
+    out = {}
+    for n in sorted(sizes, reverse=True):
+        sub = mesh if n == mesh.size else make_mesh(n)
+        if sub is not None:
+            out[n] = halo_solves(sub, side, iters, profile_iters, device)
+    if with_p2:
+        sub = mesh if P2_SHARDS == mesh.size else make_mesh(P2_SHARDS)
+        if sub is not None:
+            out["p2"] = p2_paths(sub, device)
+    return out
+
+
+def halo_references(side=HALO_SIDE, iters=HALO_ITERS, device="cuda"):
+    """The single-card solves ``[pfdr-halo]`` is held against:
+    ``pfdr_quadratic_d1`` on the whole field's ``StencilGraphD1`` (the
+    ``stencil_fused`` kernel), ``iters`` iterations at dif_tol = 0, float32
+    and float64.  Returns ``{dtype: (iterations, x)}``."""
+    import torch
+    from cp_pfdr_graph_d1_tpu_torch import DenseOp, pfdr_quadratic_d1
+    ref = {}
+    for dtype in (torch.float32, torch.float64):
+        g, a, y, lip, _ = halo_problem(side, dtype, 1, device)
+        vp, opt = halo_options(iters)
+        la_l1 = torch.full((side * side,), LA_L1_HALO, dtype=dtype,
+                           device=device)
+        op = DenseOp(a)
+        sync(device)
+        t0 = time.perf_counter()
+        res = pfdr_quadratic_d1(op, y, g, opt=opt, la_l1=la_l1, vprox=vp,
+                                lipsch=lip)
+        sync(device)
+        secs = time.perf_counter() - t0
+        x = res.x.cpu().numpy()
+        check(np.all(np.isfinite(x)), "single-card halo reference not finite")
+        ref[dtype] = (res.it, x)
+        print(f"[pfdr-halo] single card, {side}x{side} N={N_HALO} F=2, "
+              f"{str(dtype)[6:]}: {res.it} iterations of stencil_fused, "
+              f"{secs * 1e6 / res.it:.1f} us/iteration, max|x| "
+              f"{np.abs(x).max():.4g}", flush=True)
+        del g, a, y, op, res
+    return ref
+
+
+def in_process_group(fn, *args, device="cuda"):
+    """``fn(mesh, *args)`` in this process, in a group of size 1 (NCCL on
+    the card: its sums go through NCCL; the ring is a local copy); returns
+    ``(result, backend)``."""
+    import torch.distributed as dist
+    from cp_pfdr_graph_d1_tpu_torch.parallel import (initialize_distributed,
+                                                     make_mesh)
+    from cp_pfdr_graph_d1_tpu_torch.parallel.mesh import free_port
+    backend = initialize_distributed(f"127.0.0.1:{free_port()}", 1, 0, device)
+    try:
+        return fn(make_mesh(), *args), backend
+    finally:
+        dist.destroy_process_group()
+
+
+HALO_PROFILE_ITERS = 20
+
+
+def phase_pfdr_halo(ref, p2_ref=None, side=HALO_SIDE, iters=HALO_ITERS,
+                    shards=HALO_SHARDS, device="cuda"):
+    """``parallel.pfdr_quadratic_d1_halo`` against the single-card solves
+    ``ref`` (``halo_references``), ``iters`` iterations at dif_tol = 0,
+    float32 and float64.  P = 1 runs in this process in an NCCL group of
+    size 1 (``in_process_group``); P > 1 runs as spawned ranks that share
+    the card over gloo, the strips and partial sums staged through pinned
+    host memory, each rank then profiling its busy share; with two cards
+    or more, P = the card count (at most 4) runs once more with one NCCL
+    rank per card.  Not a scaling measurement: ranks that share one card
+    share its time.  With ``p2_ref`` (``p2_references``) the spawned ranks
+    then run the other distributed entries at P = 2 (``report_p2``).  This
+    process launches only the P = 1 solves' kernels: its busy share is
+    profiled after the counted run (``halo_busy_p1``).  Returns the max
+    |dx| per ring size and dtype, and the P = 2 entries' objective
+    gaps."""
+    import torch
+    from cp_pfdr_graph_d1_tpu_torch.parallel import spawn_ranks
+    with_p2 = p2_ref is not None
+    runs = []
+    if 1 in shards:
+        out, backend = in_process_group(halo_solves, side, iters, 0, device,
+                                        device=device)
+        runs.append((out, f"in this process, {backend} group of size 1 "
+                          f"(self ring: local copy)"))
+    sizes = tuple(n for n in shards if n > 1)
+    shared = []
+    if sizes or with_p2:
+        shared = spawn_ranks(shared_card_ranks, max(sizes + (P2_SHARDS,)),
+                             side, iters, HALO_PROFILE_ITERS, device, sizes,
+                             with_p2, device=device)
+    for p_n in sorted(sizes):
+        runs.append(([o[p_n] for o in shared if p_n in o],
+                     f"{p_n} spawned ranks sharing one card"))
+    if device == "cpu":
+        pass
+    elif torch.cuda.device_count() >= 2:
+        p_n = min(torch.cuda.device_count(), 4)
+        outs = spawn_ranks(halo_solves, p_n, side, iters, HALO_PROFILE_ITERS,
+                           device, device=device)
+        runs.append((outs, f"{p_n} spawned ranks, one card each"))
+    else:
+        print(f"[pfdr-halo] one rank per card over NCCL: not run, this "
+              f"machine has {torch.cuda.device_count()} card (NCCL refuses "
+              f"two ranks on one device)", flush=True)
+    worst = {}
+    for outs, how in runs:
+        outs = outs if isinstance(outs, list) else [outs]
+        r0 = outs[0]
+        p_n = r0["size"]
+        staging = ("strips and partial sums staged through pinned host "
+                   "memory" if r0["staged"] else "CUDA tensors passed to "
+                   "the backend")
+        for dt in ("float32", "float64"):
+            it_ref, x_ref = ref[getattr(torch, dt)]
+            d = r0[dt]
+            err = float(np.abs(d["x"] - x_ref).max())
+            tol = 1e-10 if dt == "float64" else 1e-4
+            worst[(p_n, dt)] = err
+            check(d["it"] == it_ref, f"halo P={p_n} {dt}: {d['it']} "
+                  f"iterations, single card {it_ref}")
+            check(device == "cpu"
+                  or all(o[dt]["launches"] == 5 * d["it"] for o in outs),
+                  f"halo P={p_n} {dt}: not 5 kernel launches per iteration "
+                  f"in every rank: {[o[dt]['launches'] for o in outs]}")
+            check(err <= tol, f"halo P={p_n} {dt}: max|dx| {err:.3g} > "
+                  f"{tol}")
+            print(f"[pfdr-halo] P={p_n} {r0['backend']} ({how}; {staging}) "
+                  f"{dt}: {d['it']} iterations, "
+                  + ", ".join(f"rank {r}: {o[dt]['us_per_it']:.1f} us/it"
+                              + ("" if o[dt]["busy"] is None else
+                                 f", busy {o[dt]['busy']}")
+                              for r, o in enumerate(outs))
+                  + f"; max|x - x_single_card| = {err:.3e} (tol {tol:g});"
+                  f" halo_fused launches per rank {d['launches']}",
+                  flush=True)
+    gaps = None
+    if with_p2:
+        gaps = report_p2([o["p2"] for o in shared if "p2" in o], *p2_ref)
+    return worst, gaps
+
+
+def halo_busy_p1(side=HALO_SIDE, device="cuda"):
+    """The P = 1 halo solve's device busy share, profiled outside the
+    counted run, in an NCCL group of size 1 in this process."""
+    busy, backend = in_process_group(halo_busy, side, HALO_PROFILE_ITERS,
+                                     device, device=device)
+    print(f"[pfdr-halo] P=1 {backend} (in this process), device busy share "
+          f"of a {HALO_PROFILE_ITERS}-iteration solve: "
+          + ", ".join(f"{dt} {b}" for dt, b in busy.items()), flush=True)
+    return busy
+
+
+# the other ported distributed entries, once each at P = 2 on the card
+P2_SHARDS = 2
+P2_SIMPLEX_ITERS = 200    # [pfdr-halo-simplex]: PFDR iterations at dif_tol 0
+P2_DP_ITERS = 300         # [pfdr-dp]
+P2_CP_IT = 4              # [cp-dist]: cut-pursuit iterations
+P2_CROP = 128             # [cp-sharded]: side of the crop of the problem
+P2_SIMPLEX_CROP = 96      # [cp-sharded-simplex]: side of its crop
+P2_SHARDED_IT = 3         # [cp-sharded]: cut-pursuit iterations
+P2_SIMPLEX_IT = 2         # [cp-sharded-simplex]: cut-pursuit iterations
+
+
+def p2_cuts():
+    """What the P = 2 phases cut of the problems they take, for the
+    printed lines."""
+    return {
+        "pfdr-halo-simplex": f"{P2_SIMPLEX_ITERS} iterations at dif_tol 0",
+        "pfdr-dp": f"{P2_DP_ITERS} iterations at dif_tol 0",
+        "cp-dist": f"it_max {P2_CP_IT} (bench.py: 15), float64",
+        "cp-sharded": f"a {P2_CROP} x {P2_CROP} crop of the 724 x 724 "
+                      f"field (the window of the largest spread), it_max "
+                      f"{P2_SHARDED_IT} (bench.py: 4)",
+        "cp-sharded-simplex": f"the central {P2_SIMPLEX_CROP} x "
+                              f"{P2_SIMPLEX_CROP} crop of the 512 x 512 "
+                              f"field (all four labels), it_max "
+                              f"{P2_SIMPLEX_IT} (bench.py: 10)"}
+
+
+def denoise_crop():
+    """The P2_CROP x P2_CROP window of ``denoise_problem``'s field (on a
+    grid of windows) whose values spread the most: it holds rectangles."""
+    y = denoise_problem().reshape(SIDE_524K, SIDE_524K)
+    n = SIDE_524K // P2_CROP
+    wins = [(i * P2_CROP, j * P2_CROP) for i in range(n) for j in range(n)]
+    i, j = max(wins, key=lambda ij: float(
+        y[ij[0]:ij[0] + P2_CROP, ij[1]:ij[1] + P2_CROP].std()))
+    return y[i:i + P2_CROP, j:j + P2_CROP].ravel().copy()
+
+
+def p2_inputs():
+    """Host problems of the P = 2 phases (every process makes the same)."""
+    q, _ = cp_simplex_problem()
+    c0 = (SIDE_262K - P2_SIMPLEX_CROP) // 2
+    c1 = c0 + P2_SIMPLEX_CROP
+    q_crop = q.reshape(SIDE_262K, SIDE_262K, K_SIMPLEX)[
+        c0:c1, c0:c1].reshape(-1, K_SIMPLEX).copy()
+    y_den = denoise_crop()
+    a, y = build_grid_problem()
+    eu, ev = grid_edges()
+    lip = float(np.linalg.eigvalsh((a @ a.T).astype(np.float64))[-1])
+    return dict(q=q, q_crop=q_crop, y_den=y_den, a=a, y=y, eu=eu, ev=ev,
+                lip=lip)
+
+
+def p2_options():
+    from cp_pfdr_graph_d1_tpu_torch import (CPOptions, PFDROptions,
+                                            VertexProx)
+    return dict(
+        simplex=PFDROptions(rho=1.5, dif_tol=0.0, it_max=P2_SIMPLEX_ITERS),
+        dp=PFDROptions(rho=1.5, dif_tol=0.0, it_max=P2_DP_ITERS),
+        dp_vprox=VertexProx(kind="l1", positivity=True),
+        cp=CPOptions(dif_tol=1e-4, it_max=P2_CP_IT,
+                     pfdr=PFDROptions(rho=1.5, dif_tol=1e-7, it_max=10_000)),
+        sharded=CPOptions(dif_tol=1e-4, it_max=P2_SHARDED_IT,
+                          pfdr=PFDROptions(rho=1.8, dif_tol=1e-5,
+                                           it_max=2000),
+                          cut_tol=1e-5, cut_it_max=50_000),
+        sharded_simplex=CPOptions(dif_tol=1e-3, it_max=P2_SIMPLEX_IT,
+                                  pfdr=PFDROptions(rho=1.5, dif_tol=1e-6,
+                                                   it_max=3000),
+                                  cut_tol=1e-5, cut_it_max=50_000))
+
+
+def p2_graphs(pb, device):
+    import torch
+    from cp_pfdr_graph_d1_tpu_torch import GraphD1, StencilGraphD1
+    f32 = torch.float32
+    return dict(
+        simplex=StencilGraphD1.create((SIDE_262K, SIDE_262K),
+                                      {(0, 1): 0.4, (1, 0): 0.4}, dtype=f32,
+                                      device=device),
+        dp=GraphD1.create(pb["eu"], pb["ev"], LA_D1, dtype=f32,
+                          device=device),
+        cp=GraphD1.create(pb["eu"], pb["ev"], LA_D1, dtype=torch.float64,
+                          device=device),
+        sharded=StencilGraphD1.create((P2_CROP, P2_CROP),
+                                      {(0, 1): 0.35, (1, 0): 0.35},
+                                      dtype=f32, device=device),
+        sharded_simplex=StencilGraphD1.create(
+            (P2_SIMPLEX_CROP, P2_SIMPLEX_CROP), {(0, 1): 0.4, (1, 0): 0.4},
+            dtype=f32, device=device))
+
+
+def p2_paths(mesh, device="cuda"):
+    """This rank's runs of the five entries (rank 0 returns the results);
+    each ``(seconds, result, kernel launches in this rank)``."""
+    import torch
+    from cp_pfdr_graph_d1_tpu_torch import DenseOp
+    from cp_pfdr_graph_d1_tpu_torch import parallel as par
+    pb = p2_inputs()
+    opts = p2_options()
+    gs = p2_graphs(pb, device)
+    keep = mesh.rank == 0
+    out = dict(backend=mesh.backend,
+               staged=mesh.staged(torch.empty(1, device=device)))
+
+    def run(name, fn):
+        reset_counts()
+        sync(device)
+        t0 = time.perf_counter()
+        res = fn()
+        sync(device)
+        counts = {k: v for k, v in read_counts().items() if v}
+        out[name] = (time.perf_counter() - t0, res if keep else None, counts)
+
+    prob = par.shard_stencil_simplex_problem(pb["q"], gs["simplex"],
+                                             mesh.size)
+    run("pfdr-halo-simplex", lambda: par.pfdr_loss_d1_simplex_halo(
+        prob, mesh, al=1.0, opt=opts["simplex"], device=device).p.cpu()
+        .numpy())
+    dprob = par.shard_quadratic_problem(pb["a"], pb["y"], pb["eu"], pb["ev"],
+                                        LA_D1, mesh.size)
+    run("pfdr-dp", lambda: par.pfdr_quadratic_d1_sharded(
+        dprob, mesh, la_l1=LA_L1, vprox=opts["dp_vprox"], lipsch=pb["lip"],
+        opt=opts["dp"], device=device).x.cpu().numpy())
+    a64 = torch.as_tensor(pb["a"], dtype=torch.float64)
+
+    def cp_dist():
+        res = par.cp_quadratic_d1_dist(
+            DenseOp(a64), torch.as_tensor(pb["y"], dtype=torch.float64),
+            gs["cp"], mesh, la_l1=LA_L1, positivity=True, opt=opts["cp"],
+            device=device)
+        return res.cv, res.rx, res.it
+
+    run("cp-dist", cp_dist)
+
+    def sharded():
+        res = par.cp_quadratic_d1_sharded(pb["y_den"], gs["sharded"], mesh,
+                                          opt=opts["sharded"], device=device)
+        return res.cv, res.rx, res.it
+
+    run("cp-sharded", sharded)
+
+    def sharded_simplex():
+        res = par.cp_loss_d1_simplex_sharded(
+            pb["q_crop"], gs["sharded_simplex"], mesh, al=1.0,
+            opt=opts["sharded_simplex"], device=device)
+        return res.cv, res.rp, res.it
+
+    run("cp-sharded-simplex", sharded_simplex)
+    return out
+
+
+def tv_objective(x, y, side, la):
+    x = np.asarray(x, np.float64).reshape(side, side)
+    return (0.5 * np.sum((x.ravel() - y.astype(np.float64)) ** 2)
+            + la * np.sum(np.abs(x[:, 1:] - x[:, :-1]))
+            + la * np.sum(np.abs(x[1:] - x[:-1])))
+
+
+def simplex_objective_np(p, q, side, la):
+    """Quadratic-loss (al = 1) multi-label objective on a side x side
+    4-neighbour grid, float64 on the host."""
+    p = np.asarray(p, np.float64).reshape(side, side, -1)
+    q = np.asarray(q, np.float64).reshape(side, side, -1)
+    return (0.5 * np.sum((p - q) ** 2)
+            + la * np.sum(np.abs(p[:, 1:] - p[:, :-1]))
+            + la * np.sum(np.abs(p[1:] - p[:-1])))
+
+
+def p2_references(device="cuda"):
+    """The single-card counterparts of the five entries, in this process."""
+    import torch
+    from cp_pfdr_graph_d1_tpu_torch import (DenseOp, IdentityOp,
+                                            cp_loss_d1_simplex,
+                                            pfdr_loss_d1_simplex,
+                                            pfdr_quadratic_d1)
+    from cp_pfdr_graph_d1_tpu_torch.solvers.cut_pursuit import \
+        cp_quadratic_d1
+    pb = p2_inputs()
+    opts = p2_options()
+    gs = p2_graphs(pb, device)
+    ref = {}
+
+    def run(name, fn):
+        sync(device)
+        t0 = time.perf_counter()
+        res = fn()
+        sync(device)
+        ref[name] = (time.perf_counter() - t0, res)
+
+    run("pfdr-halo-simplex", lambda: pfdr_loss_d1_simplex(
+        gs["simplex"], torch.as_tensor(pb["q"], device=device), al=1.0,
+        opt=opts["simplex"]).p.cpu().numpy())
+    run("pfdr-dp", lambda: pfdr_quadratic_d1(
+        DenseOp(torch.as_tensor(pb["a"], device=device)),
+        torch.as_tensor(pb["y"], device=device), gs["dp"],
+        la_l1=torch.full((V_SIDE * V_SIDE,), LA_L1, device=device),
+        vprox=opts["dp_vprox"], lipsch=pb["lip"],
+        opt=opts["dp"]).x.cpu().numpy())
+
+    def cp():
+        res = cp_quadratic_d1(
+            DenseOp(torch.as_tensor(pb["a"], dtype=torch.float64,
+                                    device=device)),
+            torch.as_tensor(pb["y"], dtype=torch.float64, device=device),
+            gs["cp"], la_l1=np.full(V_SIDE * V_SIDE, LA_L1),
+            positivity=True, opt=dataclasses.replace(opts["cp"],
+                                                     host_small="off"))
+        return res.cv, res.rx, res.it
+
+    run("cp-dist", cp)
+
+    def sharded():
+        res = cp_quadratic_d1(
+            IdentityOp(), torch.as_tensor(pb["y_den"], device=device),
+            gs["sharded"], opt=dataclasses.replace(
+                opts["sharded"], cut="device", chain="off"))
+        return res.cv, res.rx, res.it
+
+    run("cp-sharded", sharded)
+
+    def sharded_simplex():
+        res = cp_loss_d1_simplex(
+            gs["sharded_simplex"], torch.as_tensor(pb["q_crop"],
+                                                   device=device),
+            al=1.0, opt=dataclasses.replace(opts["sharded_simplex"],
+                                            cut="device"))
+        return res.cv, res.rp, res.it
+
+    run("cp-sharded-simplex", sharded_simplex)
+
+    def sharded_simplex_f64():
+        res = cp_loss_d1_simplex(
+            gs["sharded_simplex"], torch.as_tensor(pb["q_crop"],
+                                                   device=device),
+            al=1.0, opt=dataclasses.replace(opts["sharded_simplex"],
+                                            cut="host", host_small="on"))
+        return res.cv, res.rp, res.it
+
+    # the sharded loop solves its reduced problems in float64 (native
+    # C++); the single-card device loop above in float32, which can tip a
+    # knife-edge expansion cut of the next iteration: the host loop with
+    # the same float64 reduced solves is the second witness
+    run("cp-sharded-simplex-f64", sharded_simplex_f64)
+    return ref, pb
+
+
+def report_p2(outs, ref, pb):
+    """``pfdr_loss_d1_simplex_halo``, ``pfdr_quadratic_d1_sharded``,
+    ``cp_quadratic_d1_dist``, ``cp_quadratic_d1_sharded`` and
+    ``cp_loss_d1_simplex_sharded``, run once each at P = 2 (``p2_paths``,
+    two ranks sharing the card over gloo; ``outs`` per rank), against their
+    single-card counterparts in the port on the same problems (``ref``,
+    ``p2_references``): ``bench.py:425-486``'s 512 x 512 K = 4 multi-label
+    problem (al = 1), the EEG problem on its COO graph
+    (``bench.py:65-82``) and ``bench.py:366-386``'s 724 x 724 denoising,
+    cut as ``p2_cuts`` says.  Prints the objective gap, max |difference|
+    and the equality of the partitions; holds each to its tolerance."""
+    r0 = outs[0]
+    how = (f"P={P2_SHARDS} {r0['backend']}, "
+           + ("strips and sums staged through pinned host memory"
+              if r0["staged"] else "tensors passed to the backend"))
+    cuts = p2_cuts()
+    gaps = {}
+
+    def line(name, msg):
+        secs = max(o[name][0] for o in outs)
+        counts = [o[name][2] for o in outs]
+        print(f"[{name}] {how}; cut: {cuts[name]}; {secs:.2f} s (single "
+              f"card {ref[name][0]:.2f} s); {msg}; kernel launches per rank "
+              f"{counts}", flush=True)
+
+    # multi-label halo PFDR against stencil_fused_simplex on one card
+    p_h, p_1 = r0["pfdr-halo-simplex"][1], ref["pfdr-halo-simplex"][1]
+    f_h = simplex_objective_np(p_h, pb["q"], SIDE_262K, 0.4)
+    f_1 = simplex_objective_np(p_1, pb["q"], SIDE_262K, 0.4)
+    err = float(np.abs(p_h - p_1).max())
+    gaps["pfdr-halo-simplex"] = (f_h - f_1) / abs(f_1)
+    line("pfdr-halo-simplex", f"objective {f_h:.9g} vs {f_1:.9g} (rel gap "
+         f"{gaps['pfdr-halo-simplex']:.2e}), max|dp| {err:.2e}")
+    check(np.all(np.isfinite(p_h)) and err <= 1e-3,
+          f"pfdr-halo-simplex: max|dp| {err}")
+
+    # edge-sharded PFDR against the COO staged loop on one card
+    x_d, x_1 = r0["pfdr-dp"][1], ref["pfdr-dp"][1]
+    eu, ev = pb["eu"], pb["ev"]
+    f_d = objective(x_d, pb["a"], pb["y"], eu, ev, np.full(len(eu), LA_D1))
+    f_1 = objective(x_1, pb["a"], pb["y"], eu, ev, np.full(len(eu), LA_D1))
+    err = float(np.abs(x_d - x_1).max())
+    gaps["pfdr-dp"] = (f_d - f_1) / abs(f_1)
+    line("pfdr-dp", f"objective {f_d:.9g} vs {f_1:.9g} (rel gap "
+         f"{gaps['pfdr-dp']:.2e}), max|dx| {err:.2e}")
+    check(np.all(np.isfinite(x_d)) and err <= 1e-3, f"pfdr-dp: max|dx| {err}")
+
+    # distributed cut-pursuit (float64) against the single-card host cut
+    (cv_d, rx_d, it_d), (cv_1, rx_1, it_1) = (r0["cp-dist"][1],
+                                              ref["cp-dist"][1])
+    same = bool(np.array_equal(cv_d, cv_1))
+    f_d = objective(rx_d[cv_d], pb["a"], pb["y"], eu, ev,
+                    np.full(len(eu), LA_D1))
+    f_1 = objective(rx_1[cv_1], pb["a"], pb["y"], eu, ev,
+                    np.full(len(eu), LA_D1))
+    gaps["cp-dist"] = (f_d - f_1) / abs(f_1)
+    rx_err = (float(np.abs(rx_d - rx_1).max() / np.abs(rx_1).max())
+              if same else float("nan"))
+    line("cp-dist", f"{it_d} vs {it_1} iterations, {len(rx_d)} vs "
+         f"{len(rx_1)} components, cv equal: {same}, max|drx|/max|rx| "
+         f"{rx_err:.2e}, objective rel gap {gaps['cp-dist']:.2e}")
+    check(same and rx_err <= 1e-9, "cp-dist: the float64 partition or "
+          "values differ from the single-card run")
+
+    # sharded-graph cut-pursuit against the single-card device loop
+    (cv_s, rx_s, it_s), (cv_1, rx_1, it_1) = (r0["cp-sharded"][1],
+                                              ref["cp-sharded"][1])
+    f_s = tv_objective(rx_s[cv_s], pb["y_den"], P2_CROP, 0.35)
+    f_1 = tv_objective(rx_1[cv_1], pb["y_den"], P2_CROP, 0.35)
+    gaps["cp-sharded"] = (f_s - f_1) / abs(f_1)
+    line("cp-sharded", f"{it_s} vs {it_1} iterations, {len(rx_s)} vs "
+         f"{len(rx_1)} components, cv equal: "
+         f"{bool(np.array_equal(cv_s, cv_1))}, objective {f_s:.9g} vs "
+         f"{f_1:.9g} (rel gap {gaps['cp-sharded']:.2e})")
+    check(np.all(np.isfinite(rx_s)) and gaps["cp-sharded"] <= 1e-3,
+          f"cp-sharded: objective {f_s} vs {f_1}")
+
+    # sharded multi-label cut-pursuit against the single-card device loop
+    # (float32 reduced solves) and the host loop with the sharded loop's
+    # float64 native reduced solves; the iteration counts must equal the
+    # latter's
+    cv_s, rp_s, it_s = r0["cp-sharded-simplex"][1]
+    f_s = simplex_objective_np(rp_s[cv_s], pb["q_crop"], P2_SIMPLEX_CROP,
+                               0.4)
+    check(np.all(np.isfinite(rp_s)), "cp-sharded-simplex: not finite")
+    msgs = []
+    for key, what in (("cp-sharded-simplex", "device loop, float32 reduced "
+                       "solves"), ("cp-sharded-simplex-f64", "host loop, "
+                                   "float64 native reduced solves")):
+        cv_1, rp_1, it_1 = ref[key][1]
+        f_1 = simplex_objective_np(rp_1[cv_1], pb["q_crop"], P2_SIMPLEX_CROP,
+                                   0.4)
+        agree = float(np.mean(rp_s[cv_s].argmax(1) == rp_1[cv_1].argmax(1)))
+        gap = (f_s - f_1) / abs(f_1)
+        gaps[key] = gap
+        msgs.append(f"against the single-card {what} ({ref[key][0]:.2f} s): "
+                    f"{it_s} vs {it_1} iterations, {len(rp_s)} vs "
+                    f"{len(rp_1)} components, labels agree on {agree:.4f} "
+                    f"of the vertices, objective {f_s:.9g} vs {f_1:.9g} "
+                    f"(rel gap {gap:.2e})")
+        check(gap <= 1e-3 and agree >= 0.98, f"{key}: objective {f_s} vs "
+              f"{f_1}, labels agree on {agree}")
+        if key.endswith("f64"):
+            check(it_s == it_1, f"cp-sharded-simplex: {it_s} iterations, "
+                  f"the float64 witness {it_1}")
+    line("cp-sharded-simplex", "; ".join(msgs))
+    if r0["staged"] or r0["backend"] == "nccl":  # ranks on the card
+        check(all(sum(o["cp-dist"][2].get(k, 0)
+                      for k in ("solve_small", "solve_fused")) > 0
+                  for o in outs), "cp-dist: a rank solved its reduced "
+              "problems without the solve_small / solve_fused kernels")
+    return gaps
+
+
 def bound(nbytes, flops):
     """``(bound_ms, bound_by)``: the larger of the bytes over the memory
     rate and the float32 operations over the float32 rate."""
@@ -2326,6 +3131,7 @@ def reduced_solve_work(rv_cap, ne, n_rows, iters, itemsize=4):
 
 def main():
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    t_main = time.monotonic()
     phase_env()
     import torch
     phase_build()
@@ -2341,12 +3147,19 @@ def main():
     bf_err, bf_t = phase_banded_fused()
     cf_err, cf_t = phase_circulant_fused()
     cs_err, cs_t = phase_circulant_simplex()
+    t_halo = time.monotonic()
+    hf_err, hf_abs, hf_t = phase_halo_fused()
+    print(f"[halo_fused] phase {time.monotonic() - t_halo:.1f} s",
+          flush=True)
     # the float64 solves the multi-label and mesh paths are held against,
     # outside the paths' counted windows
     p64 = simplex_reference()
     cp_ref = cp_simplex_reference()
     x_mesh64 = mesh_reference()
     p_mesh64 = mesh_simplex_solve(torch.float64, "cuda", 3000).p.cpu()
+    # and the single-card solves the distributed paths are held against
+    halo_ref = halo_references()
+    p2_ref = p2_references()
 
     # the main paths: each with the counts set to 0 just before it and read
     # just after; each must have launched the kernels it runs
@@ -2368,15 +3181,19 @@ def main():
               ("banded_fused", "banded_gather", "banded_scatter",
                "solve_fused")),
              ("pfdr-mesh-simplex", phase_pfdr_mesh_simplex, (p_mesh64,),
-              ("circulant_fused_simplex",)))
+              ("circulant_fused_simplex",)),
+             ("pfdr-halo", phase_pfdr_halo, (halo_ref, p2_ref),
+              ("halo_fused",)))
     f_ref = None
     for name, fn, args, needs in paths:
         reset_counts()
+        t_path = time.monotonic()
         out = fn(*(args if args is not None else (f_ref,)))
         if name == "cp-host":
             f_ref = out[1]
         counts = read_counts()
-        print(f"[{name}] kernel launches: {counts}", flush=True)
+        print(f"[{name}] kernel launches: {counts} "
+              f"({time.monotonic() - t_path:.1f} s)", flush=True)
         check(all(counts[k] > 0 for k in needs),
               f"{name}: a kernel of the path was not launched: {counts}")
         for k, v in counts.items():
@@ -2385,6 +3202,7 @@ def main():
           f"a kernel was launched on no main path: {launches}")
     phase_profile()
     profile_mesh()
+    halo_busy_p1()
 
     v_eeg, f2 = V_SIDE * V_SIDE, 2
     rv_big = max(ss_t["ms"])
@@ -2541,6 +3359,30 @@ def main():
                    f"remainder slots, K={K_SIMPLEX}, one multi-label PFDR "
                    f"iteration"),
     ]
+    # slice 5: one halo iteration on a 512 x 2048 row block (P = 4 of the
+    # 2048 x 2048 field), F = 2: x, grad, Gamma, th_l1 and 7F edge fields
+    # read, x and 2F edge fields written; per cell about 22 operations per
+    # family and 10 for the vertex
+    hb = HALO_SIDE // 4 * HALO_SIDE
+    f_h = hf_t[1]["f"]
+    work["halo_fused"] = (4 * (5 + 9 * f_h) * hb, (22 * f_h + 10) * hb)
+    rows.append(dict(
+        name="halo_fused", source="halo_fused.cu",
+        replaces="halo_fused.py:222", max_abs_err=hf_abs[f32],
+        max_abs_err_f64=hf_abs[f64],
+        max_rel_err=max(v for (d, _), v in hf_err.items() if d == f32),
+        max_rel_err_f64=max(v for (d, _), v in hf_err.items() if d == f64),
+        ms=hf_t[1]["ms"], plain_ms=hf_t[1]["plain_ms"],
+        device_us=hf_t[1]["device_us"],
+        plain_device_us=hf_t[1]["plain_device_us"],
+        hd2=dict(f=hf_t[2]["f"], ms=hf_t[2]["ms"],
+                 plain_ms=hf_t[2]["plain_ms"],
+                 device_us=hf_t[2]["device_us"],
+                 bound_ms=bound(4 * (5 + 9 * hf_t[2]["f"]) * hb,
+                                (22 * hf_t[2]["f"] + 10) * hb)[0]),
+        shape=f"{HALO_SIDE // 4}x{HALO_SIDE} row block F={f_h} hd=1 (P=4 "
+              f"of {HALO_SIDE}x{HALO_SIDE}), one halo PFDR iteration (5 "
+              f"launches, exchanges replayed)"))
     kernels = []
     for row in rows:
         b_ms, b_by = bound(*work[row["name"]])
@@ -2551,6 +3393,7 @@ def main():
             launches=launches[row["name"]], bound_ms=b_ms, bound_by=b_by,
             library_ms=row.pop("library_ms", None),
             **{k: v for k, v in row.items() if k != "name"}))
+    print(f"[total] {time.monotonic() - t_main:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -5,7 +5,8 @@ plain values (``np.asarray`` on each JAX array, ``dataclasses.asdict`` on an
 options object); these functions build the port's objects from them.  The
 tests feed both packages the same problem this way, and a solve started in
 the JAX package resumes in the port from its :class:`PFDRSolveState`,
-:class:`CPState`, :class:`SimplexSolveState` or :class:`CPSimplexState`.
+:class:`CPState`, :class:`SimplexSolveState` or :class:`CPSimplexState`,
+and the sharded problems of :mod:`.parallel` carry over field by field.
 """
 from __future__ import annotations
 
@@ -19,6 +20,8 @@ from .circulant import CirculantGraphD1
 from .config import CPOptions, PFDROptions
 from .graph import GraphD1
 from .operators import DenseOp, DiagOp, GramOp, IdentityOp
+from .parallel.dp import ShardedQuadraticProblem, ShardedSimplexProblem
+from .parallel.halo import HaloShardedProblem, HaloSimplexProblem
 from .solvers.cut_pursuit import CPState
 from .solvers.cut_pursuit_simplex import CPSimplexState
 from .solvers.pfdr_quadratic import Precond, PFDRSolveState
@@ -150,3 +153,51 @@ def cp_simplex_state(active, cv, rp) -> CPSimplexState:
     one."""
     return CPSimplexState(active=np.array(active, bool),
                           cv=np.array(cv, np.int32), rp=np.array(rp))
+
+
+def halo_problem(a, obs, la_d1, field_shape, shifts,
+                 wrap) -> HaloShardedProblem:
+    """:class:`..parallel.halo.HaloShardedProblem` from the fields of the
+    JAX one (``a`` [P, N, V_loc], ``obs`` [N], ``la_d1`` [P, F V_loc])."""
+    return HaloShardedProblem(np.asarray(a), np.asarray(obs),
+                              np.asarray(la_d1), _shape(field_shape),
+                              _shifts(shifts), _shape(wrap, bool))
+
+
+def halo_simplex_problem(q, la_d1, la_f, field_shape, shifts,
+                         wrap) -> HaloSimplexProblem:
+    """:class:`..parallel.halo.HaloSimplexProblem` from the fields of the
+    JAX one (``q`` [P, V_loc, K], ``la_f`` [P, V_loc] or None)."""
+    return HaloSimplexProblem(np.asarray(q), np.asarray(la_d1),
+                              None if la_f is None else np.asarray(la_f),
+                              _shape(field_shape), _shifts(shifts),
+                              _shape(wrap, bool))
+
+
+def sharded_quadratic_problem(a, obs, eu, ev, la_d1, incidence,
+                              num_vertices) -> ShardedQuadraticProblem:
+    """:class:`..parallel.dp.ShardedQuadraticProblem` from the fields of
+    the JAX one; its local incidence tables (sentinel ``2 E_loc``) are used
+    as they are."""
+    return ShardedQuadraticProblem(
+        np.asarray(a), np.asarray(obs), np.asarray(eu, np.int32),
+        np.asarray(ev, np.int32), np.asarray(la_d1),
+        np.asarray(incidence, np.int32), int(num_vertices))
+
+
+def sharded_simplex_problem(q, eu, ev, la_d1, incidence,
+                            num_vertices) -> ShardedSimplexProblem:
+    """:class:`..parallel.dp.ShardedSimplexProblem` from the fields of the
+    JAX one."""
+    return ShardedSimplexProblem(
+        np.asarray(q), np.asarray(eu, np.int32), np.asarray(ev, np.int32),
+        np.asarray(la_d1), np.asarray(incidence, np.int32),
+        int(num_vertices))
+
+
+def _shape(t, kind=int):
+    return tuple(kind(v) for v in t)
+
+
+def _shifts(shifts):
+    return tuple((int(dy), int(dx)) for dy, dx in shifts)

@@ -152,6 +152,11 @@ class GraphD1:
     def vertex_allsum(self, vals):
         return vals.sum()
 
+    def vertex_count_global(self):
+        """Number of vertices of the whole graph (a row block of a
+        vertex-sharded graph counts every block's)."""
+        return self.num_vertices
+
     def vertex_degree_weighted(self, edge_w):
         """Sum of ``edge_w`` over the edges incident to each vertex
         (self-loops count twice)."""

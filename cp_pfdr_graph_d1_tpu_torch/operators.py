@@ -142,6 +142,22 @@ class IdentityOp(QuadOp):
                                        device=obs.device)
 
 
+class RankShardedOp(QuadOp):
+    """An operator sharded over the ranks of a process group
+    (:mod:`..parallel.cp_dist`): the cut-pursuit loop contracts it through
+    :meth:`reduced`, which sums the reduction over the ranks so that every
+    rank gets the same reduced problem."""
+
+    #: rows of the dense operator the contraction forms (global, padded);
+    #: 0 for an operator without an observation axis (the Gram mode)
+    num_obs: int = 0
+
+    def reduced(self, obs, cv, rv_cap: int, pre_at: bool):
+        """``(r_op, mat, ry, lipsch)`` of the problem contracted onto the
+        component assignment ``cv`` (``rv_cap`` padded components)."""
+        raise NotImplementedError
+
+
 def make_operator(a, num_vertices: int, dtype=None,
                   device="cuda") -> QuadOp:
     """Infers the operator mode from the shape of ``a``: ``None`` or scalar 1

@@ -40,7 +40,8 @@ import torch
 from .. import maxflow, native
 from ..config import CPOptions, Lipsch, numpy_dtype
 from ..graph import GraphD1
-from ..operators import DenseOp, DiagOp, GramOp, IdentityOp, QuadOp
+from ..operators import (DenseOp, DiagOp, GramOp, IdentityOp, QuadOp,
+                         RankShardedOp)
 from ..ops.power_iter import MatApply, dense_operator_norm, operator_norm
 from ..ops.solve_fused import fused_pfdr_solve
 from ..ops.solve_small import fits, fused_pfdr_solve_small
@@ -106,7 +107,13 @@ def _reduce_dense(a, obs, cv, rv_cap: int, pre_at: bool):
     """Reduced operator, observation and DIAG Lipschitz metric for the dense
     mode (``CP_PFDR_graph_quadratic_d1_l1.cpp:663-836``): component column
     sums as a one-hot matrix product."""
-    ra = a @ _one_hot(cv, rv_cap, a.dtype)  # [N, rv_cap]
+    return reduced_dense(a @ _one_hot(cv, rv_cap, a.dtype), obs, rv_cap,
+                         pre_at)
+
+
+def reduced_dense(ra, obs, rv_cap: int, pre_at: bool):
+    """Tail of :func:`_reduce_dense` from the component column sums ``ra``
+    [N, rv_cap] (the distributed operators gather them first)."""
     if pre_at:
         raa = ra.T @ ra
         ry = ra.T @ obs
@@ -120,8 +127,12 @@ def _reduce_dense(a, obs, cv, rv_cap: int, pre_at: bool):
 def _reduce_gram(gram, obs, cv, rv_cap: int):
     """Reduced quantities for the premultiplied (A^t A) mode."""
     s = _one_hot(cv, rv_cap, gram.dtype)
-    raa = s.T @ (gram @ s)
-    ry = obs @ s
+    return reduced_gram(s.T @ (gram @ s), obs @ s, rv_cap)
+
+
+def reduced_gram(raa, ry, rv_cap: int):
+    """Tail of :func:`_reduce_gram` from the reduced Gram ``raa`` and
+    observation ``ry`` (the distributed operators sum them first)."""
     return raa, ry, torch.diagonal(raa) * _equilibrated_norm(raa, rv_cap)
 
 
@@ -135,7 +146,12 @@ def _reduce_diag(diag, obs, cv, rv_cap: int):
 
 def _reduce_operator(kind: str, op_arr, obs, cv, rv_cap: int, pre_at: bool):
     """``(r_op, mat, ry, lipsch)`` of the problem contracted onto ``cv``,
-    for an operator of kind "dense", "gram" or "diag"."""
+    for an operator of kind "dense", "gram" or "diag", or "dist" (then
+    ``op_arr`` is the operator: its ``reduced`` method sums the reduction
+    over the ranks it is sharded on, and every rank gets the same reduced
+    problem)."""
+    if kind == "dist":
+        return op_arr.reduced(obs, cv, rv_cap, pre_at)
     if kind == "dense":
         mat, ry, lipsch = _reduce_dense(op_arr, obs, cv, rv_cap, pre_at)
         return (GramOp(mat) if pre_at else DenseOp(mat)), mat, ry, lipsch
@@ -457,7 +473,9 @@ def cp_quadratic_d1(op: QuadOp, obs, graph: GraphD1, *,
                     f"PFDROptions.{name}={value!r} is not supported by the "
                     f"solve_small kernel; pass PFDROptions(fused='off') to "
                     f"solve the reduced problems in the staged loop")
-    if isinstance(op, DenseOp):
+    if isinstance(op, RankShardedOp):  # sharded over ranks
+        kind, op_arr = "dist", op
+    elif isinstance(op, DenseOp):
         kind, op_arr = "dense", op.a
     elif isinstance(op, GramOp):
         kind, op_arr = "gram", op.gram
@@ -536,7 +554,9 @@ def cp_quadratic_d1(op: QuadOp, obs, graph: GraphD1, *,
         first route that applies (module docstring); returns the [rV]
         component values."""
         nonlocal pfdr_it_prev
-        pre_at = kind == "dense" and pre_at_rule(op_arr.shape[0])
+        n_obs = (op_arr.num_obs if kind == "dist"
+                 else op_arr.shape[0] if kind == "dense" else 0)
+        pre_at = n_obs > 0 and pre_at_rule(n_obs)
         if dev_route:
             rv_cap = max(bucket(num_comp), 128)
             e_cap = max(bucket(len(rg.eu)), 128)

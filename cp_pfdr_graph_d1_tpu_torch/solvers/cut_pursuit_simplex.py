@@ -106,17 +106,41 @@ def _alpha_expansion_cuts(dfs, rdi, cv, eu, ev, la_d1, active, eps,
     return djv
 
 
-def _multi_process():
-    return (torch.distributed.is_available()
-            and torch.distributed.is_initialized()
-            and torch.distributed.get_world_size() > 1)
+class _ObsRows:
+    """The rows of a row-sharded observation that this rank holds
+    (``cp_loss_d1_simplex(..., mesh=...)``): ``rows`` per rank, zero rows
+    beyond the ``num_v`` real vertices."""
+
+    def __init__(self, mesh, num_v: int, rows: int):
+        self.mesh, self.num_v, self.rows = mesh, num_v, rows
+        self.lo = mesh.rank * rows
+        self.real = max(0, min(rows, num_v - self.lo))
+
+    def total(self, t):
+        """The sum of every rank's ``t``."""
+        from ..parallel.mesh import all_sum
+        return all_sum(self.mesh, t)
+
+    def local(self, a, fill):
+        """This rank's rows of a host [V, ...] array, padded with
+        ``fill``."""
+        out = np.full((self.rows,) + a.shape[1:], fill, a.dtype)
+        out[:self.real] = a[self.lo:self.lo + self.real]
+        return out
+
+    def whole(self, t):
+        """[V, ...] from every rank's [rows, ...] tensor."""
+        from ..parallel.mesh import all_gather
+        return all_gather(self.mesh, t).reshape(
+            (-1,) + tuple(t.shape[1:]))[:self.num_v]
 
 
 def cp_loss_d1_simplex(graph: GraphD1, q, *, al: float,
                        opt: CPOptions = CPOptions(),
                        monitor: bool = False,
                        state: Optional[CPSimplexState] = None,
-                       device_obs: bool = False) -> CPSimplexResult:
+                       device_obs: bool = False,
+                       mesh=None) -> CPSimplexResult:
     """Multi-label cut-pursuit solve.
 
     Args:
@@ -132,9 +156,12 @@ def cp_loss_d1_simplex(graph: GraphD1, q, *, al: float,
       device_obs: keep the host loop but compute the O(V K) observation
         stages (loss gradient, reduced sums) on ``q``'s device; with
         ``cut="device"`` its cuts go through
-        :func:`..maxflow.device.min_cut_device_with_fallback`.  Across
-        processes (the JAX package's multi-host gather) it is not ported
-        and raises.
+        :func:`..maxflow.device.min_cut_device_with_fallback`.
+      mesh: with ``device_obs``, a :class:`..parallel.mesh.Mesh` over
+        which ``q`` is row-sharded: ``q`` is this rank's block of
+        ``ceil(V / P)`` rows (zero rows beyond V), the gradient is
+        gathered and the observation sums are summed over the ranks
+        (:func:`..parallel.cp_dist.cp_loss_d1_simplex_dist`).
 
     Returns component labels ``cv`` and [rV, K] component distributions
     ``rp`` (full solution ``p = rp[cv]``).
@@ -145,16 +172,19 @@ def cp_loss_d1_simplex(graph: GraphD1, q, *, al: float,
         from .cut_pursuit_simplex_device import cp_loss_d1_simplex_device
         return cp_loss_d1_simplex_device(graph, q, al=al, opt=opt,
                                          monitor=monitor, state=state)
-    if device_obs and _multi_process():
-        raise NotImplementedError(
-            "device_obs across processes (the JAX package's multi-host "
-            "gather of the gradient) is not ported yet: ROADMAP queue 1 "
-            "item 11")
     t0 = _time.monotonic()
     eu, ev, la_d1 = graph.host_coo()
     num_v = graph.num_vertices
     num_e = graph.num_edges
-    if q.shape[0] != num_v:
+    rows = None
+    if mesh is not None:
+        if not device_obs:
+            raise ValueError("a row-sharded q (mesh) needs device_obs=True")
+        rows = _ObsRows(mesh, num_v, q.shape[0])
+        if q.shape[0] * mesh.size < num_v:
+            raise ValueError(f"q has {q.shape[0]} rows per rank for {num_v} "
+                             f"vertices over {mesh.size} ranks")
+    elif q.shape[0] != num_v:
         raise ValueError(f"q has {q.shape[0]} rows for {num_v} vertices")
     k = q.shape[1]
     device = q.device
@@ -184,7 +214,11 @@ def cp_loss_d1_simplex(graph: GraphD1, q, *, al: float,
 
     # -- initialization: unisimplicial solution (:66-148) -------------------
     if state is None:
-        qsum = q.sum(dim=0).cpu().numpy() if device_obs else q_np.sum(axis=0)
+        if rows is not None:
+            qsum = rows.total(q.sum(dim=0)).cpu().numpy()
+        else:
+            qsum = (q.sum(dim=0).cpu().numpy() if device_obs
+                    else q_np.sum(axis=0))
         if al == 0.0:
             rp = np.zeros((1, k), dtype)
             rp[0, np.argmax(qsum)] = 1.0
@@ -203,8 +237,13 @@ def cp_loss_d1_simplex(graph: GraphD1, q, *, al: float,
 
     def objective(rp_, cv_):
         p_full = torch.as_tensor(rp_[cv_], device=device)
-        return float(loss_objective(al, p_full, q, None)
-                     + d1_objective(graph, p_full))
+        if rows is None:
+            loss = loss_objective(al, p_full, q, None)
+        else:
+            loss = rows.total(loss_objective(
+                al, p_full[rows.lo:rows.lo + rows.real], q[:rows.real],
+                None))
+        return float(loss + d1_objective(graph, p_full))
 
     def solve_reduced(rg, rq, rla_f, rp_start, host_reduce, rv_cap,
                       inner_it_max):
@@ -249,7 +288,11 @@ def cp_loss_d1_simplex(graph: GraphD1, q, *, al: float,
         p_full = rp[cv]
 
         # -- gradient + active-edge d1 signs (:327-377) --------------------
-        if device_obs:
+        if rows is not None:
+            dfs = rows.whole(_loss_grad_np(al, torch.as_tensor(
+                rows.local(p_full, 1.0 / k), device=device), q)
+            ).cpu().numpy()
+        elif device_obs:
             dfs = _loss_grad_np(
                 al, torch.as_tensor(p_full, device=device), q).cpu().numpy()
         else:
@@ -287,7 +330,12 @@ def cp_loss_d1_simplex(graph: GraphD1, q, *, al: float,
         rv_cap = num_comp if host_reduce else bucket(num_comp)
 
         # -- reduced observations (:733-766) -------------------------------
-        if device_obs:
+        if rows is not None:
+            cv_t = torch.as_tensor(rows.local(cv, 0), device=device)
+            qsum = rows.total(_run_sums(q, cv_t, rv_cap)
+                            ).cpu().numpy().astype(dtype)
+            sizes = np.bincount(cv, minlength=rv_cap).astype(dtype)
+        elif device_obs:
             cv_t = torch.as_tensor(cv, device=device)
             qsum = _run_sums(q, cv_t, rv_cap).cpu().numpy().astype(dtype)
             sizes = torch.bincount(cv_t.to(torch.int64), minlength=rv_cap

@@ -17,7 +17,8 @@ synchronisation per iteration on CUDA), so the iteration count equals the
 JAX package's.  On a stencil, circulant or banded graph with the tensors
 on a CUDA device the edge and vertex stage of each iteration is one
 hand-written kernel (:mod:`..ops.stencil_fused`, :mod:`..ops.circulant_fused`,
-:mod:`..ops.banded_fused`); the gradient ``A^t(A x - y)`` stays a matrix
+:mod:`..ops.banded_fused`; on a row block of a vertex-sharded stencil the
+three launches of :mod:`..ops.halo_fused`); the gradient ``A^t(A x - y)`` stays a matrix
 product outside it, as in the JAX package.  An unmonitored solve on a
 :class:`~..banded_graph.BandedGraphD1` (no ``monitor``, ``verbose`` or
 ``dif_rcd``) runs whole in one launch of :mod:`..ops.solve_fused`, as the
@@ -200,11 +201,13 @@ def _full_obj(op: QuadOp, x, obs, graph: GraphD1, la_l1, vprox: VertexProx):
 
 def fused_route(opt: PFDROptions, graph, obs) -> bool:
     """Whether the iteration goes through a fused stage kernel's wrapper
-    (stencil, circulant and banded containers): "auto" when the tensors lie
-    on a CUDA device, "on" always.  A stencil the kernel cannot take raises
-    rather than running the staged loop in its place."""
+    (stencil, circulant and banded containers, and the row blocks of a
+    vertex-sharded stencil through the halo kernels): "auto" when the
+    tensors lie on a CUDA device, "on" always.  A stencil the kernel cannot
+    take raises rather than running the staged loop in its place."""
     if (opt.fused == "off" or not hasattr(graph, "fused_iteration")
-            or not getattr(graph, "supports_fused", True)):
+            or not (getattr(graph, "supports_fused", True)
+                    or getattr(graph, "supports_halo_fused", False))):
         return False
     if not (opt.fused == "on" or obs.is_cuda):
         return False

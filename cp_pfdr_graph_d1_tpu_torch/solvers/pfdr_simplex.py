@@ -237,7 +237,8 @@ def fused_simplex_route(opt: PFDROptions, graph, q) -> bool:
     multi-label stage (stencil or circulant), "auto" when the tensors lie
     on a CUDA device, "on" always.  A container the kernel cannot take
     raises rather than running the staged loop in its place."""
-    if opt.fused == "off" or not hasattr(graph, "fused_simplex_iteration"):
+    if (opt.fused == "off" or not hasattr(graph, "fused_simplex_iteration")
+            or not getattr(graph, "supports_fused", True)):
         return False
     if not (opt.fused == "on" or q.is_cuda):
         return False
@@ -266,7 +267,7 @@ def _simplex_fused_loop(graph, q, p0, la_f, pre: SimplexPrecond, *,
     the planes between launches and compute what the staged loop computes.
     ``step`` replaces the iteration (by default
     ``graph.fused_simplex_iteration``, the kernel's wrapper)."""
-    vcount = graph.num_vertices
+    vcount = graph.vertex_count_global()
     dtype, device = q.dtype, q.device
     rho = float(opt.rho)
     if step is None:
@@ -290,7 +291,8 @@ def _simplex_fused_loop(graph, q, p0, la_f, pre: SimplexPrecond, *,
     p3 = tv(p0)
     q3 = tv(q)
     laf3 = tv(la_f[:, None] if has_laf
-              else torch.zeros((vcount, 1), dtype=dtype, device=device))
+              else torch.zeros((graph.num_vertices, 1), dtype=dtype,
+                               device=device))
     ga3, gap3, edges = planes(pre)
     zu, zv = te(zu0), te(zv0)
     if state0 is not None:
@@ -437,7 +439,8 @@ def pfdr_loss_d1_simplex(graph: GraphD1, q, *, al: float, la_f=None,
             dif = graph.vertex_allsum((labels != s.prev).to(dtype))
             prev = labels
         else:
-            dif = graph.vertex_allsum((p - s.prev).abs()) / vcount
+            dif = (graph.vertex_allsum((p - s.prev).abs())
+                   / graph.vertex_count_global())
             prev = p
         if monitor:
             dif_trace[s.it] = dif
