@@ -16,8 +16,11 @@ It imports nothing of JAX.  Phases, one or more lines each:
 4. ``solve_small`` against its plain version on reduced problems of that
    problem (its first steepest cut, about 2.6k components, and a 128-block
    partition), for the dense, Gram and diagonal operators;
-5. ``mincut_fused`` against its plain version at 140 x 140 and 724 x 724
-   (10 % of the edges masked, standard-normal costs), float64 and float32;
+5. ``mincut_fused`` against its plain version at 140 x 140, 512 x 512
+   and 724 x 724 (10 % of the edges masked, standard-normal costs),
+   float64 and float32, on the schedule the kernel chooses and, in
+   float32, also on schedule "stream", with microseconds per step beside
+   the streamed step's bound (over the L2 copy rate measured here);
 6. ``components_fused`` against its plain version at the same sizes, with
    10 % and 45 % of the edges masked;
 7. ``solve_fused`` against its plain version on the reduced problem the
@@ -39,7 +42,8 @@ It imports nothing of JAX.  Phases, one or more lines each:
 10. on ``bench.py:build_mesh_problem``'s Delaunay mesh (19,600 vertices,
    strip-ordered by the port's ``strip_order``): ``banded_gather`` and
    ``banded_scatter`` (and on a 4,096-vertex star, a hub of 4,096 slots;
-   ``index_select`` and ``index_add_`` timed beside them),
+   ``index_select`` and ``index_add_`` timed beside them, and the host
+   cost of each step of their launch path, ``[banded-host]``),
    ``banded_fused``, ``circulant_fused`` (64 families and a banded
    remainder; and the 140 x 140 grid as a circulant container, no
    remainder) and ``circulant_fused_simplex`` (K = 4, four losses, and
@@ -64,7 +68,12 @@ It imports nothing of JAX.  Phases, one or more lines each:
    ``BandedGraphD1`` monitored (``banded_fused``) and unmonitored (one
    ``solve_fused`` launch), and the K = 4 multi-label PFDR of
    ``bench_unstructured_simplex`` on the circulant container;
-12. where the time goes (``torch.profiler``);
+12. ``cp-reduced-options``: the EEG problem with PFDR options the
+   whole-solve kernels do not serve (reconditioning; progress lines) on
+   the default ``fused="auto"``: through the API's host cut and the
+   device loop, their reduced problems in the staged loop, held against
+   the float64 run at 1e-3; ``fused="on"`` with them raises;
+   then where the time goes (``torch.profiler``);
 13. slice 5, distribution: ``halo_fused`` against its plain version (one
    rank's iteration on a 512 x 2048 row block of a 2048 x 2048 field, the
    neighbours' strips cut from the plain iteration of the whole field's
@@ -81,6 +90,11 @@ It imports nothing of JAX.  Phases, one or more lines each:
    ``cp-sharded``, ``cp-sharded-simplex``; cut as ``p2_cuts`` prints).
    The single-card solves these are held against run before the counted
    window, and the P = 1 busy share is profiled after it.
+
+``python3 chip_smoke.py --compare`` runs only ``compare_timings`` (the
+``mincut_fused`` steps and the banded per-call times), which an older
+checkout of the port can run with its own kernels when this script is
+copied into its root.
 
 The line before the last is the JSON kernel report; the last line is the
 JSON result.  Any failed check raises, and the script then exits with a
@@ -634,19 +648,54 @@ def masked_stencil(side, dtype, device, frac, seed, weight=0.35):
     return g, active, r
 
 
+MINCUT_SIDES = (V_SIDE, 512, SIDE_524K)   # EEG, multi-label CP, 524k CP
+
+
+def l2_rate(device="cuda", nbytes=8 << 20, copies=50):
+    """Bytes per second of device-to-device copies of an ``nbytes`` buffer
+    that the 50 MB L2 holds (read and write counted), replayed from a CUDA
+    graph so that the host does not pace them: the rate against which
+    schedule "stream" of ``mincut_fused`` is bound."""
+    import torch
+    src = torch.ones(nbytes // 4, device=device)
+    dst = torch.empty_like(src)
+    dst.copy_(src)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(copies):
+            dst.copy_(src)
+    ms = cuda_ms(graph.replay, 10) / copies
+    return 2 * nbytes / (ms * 1e-3)
+
+
+def mincut_step_bytes(v, f, itemsize):
+    """Bytes one PDHG step moves when every field streams: x, xb, c, tau
+    and per family w, sigma * w, z read; x, xb and per family z
+    written."""
+    return itemsize * v * ((4 + 3 * f) + (2 + f))
+
+
 def phase_mincut(device="cuda"):
-    """``mincut_fused`` against its plain version on one steepest cut: 10 %
-    of the edges active, standard-normal costs (seed 0).  Both runs must be
-    certified and their cuts' values agree within twice the certificate
-    (a min-cut need not be unique); in float64 the step counts are equal
-    and the iterates agree to F64_TOL.  In float32 only the certificate and
-    the cut value are held: the relaxed iterates drift by rounding over
-    thousands of steps without changing the certified cut."""
+    """``mincut_fused`` against its plain version on one steepest cut at
+    140 x 140, 512 x 512 and 724 x 724: 10 % of the edges active,
+    standard-normal costs (seed 0).  Both runs must be certified and their
+    cuts' values agree within twice the certificate (a min-cut need not be
+    unique); in float64 the step counts are equal and the iterates agree to
+    F64_TOL.  In float32 only the certificate and the cut value are held:
+    the relaxed iterates drift by rounding over thousands of steps without
+    changing the certified cut.  The schedule the kernel takes is printed
+    with the microseconds per step; in float32 schedule "stream" is also
+    run, held and timed beside it, with its bound per step (the bytes a
+    streamed step moves over the L2 copy rate)."""
     import torch
     from cp_pfdr_graph_d1_tpu_torch.maxflow.device import cut_value
     from cp_pfdr_graph_d1_tpu_torch.ops import mincut_fused as mf
+    rate = l2_rate(device)
+    print(f"[mincut_fused] L2-resident copy: {rate / 1e12:.3f} TB/s (8 MB, "
+          f"read + write)", flush=True)
     errs, out = {}, {}
-    for side in (V_SIDE, SIDE_524K):
+    for side in MINCUT_SIDES:
         for dtype in (torch.float64, torch.float32):
             g, active, r = masked_stencil(side, dtype, device, 0.1, 0)
             cost = torch.as_tensor(r.standard_normal(g.num_vertices),
@@ -654,41 +703,65 @@ def phase_mincut(device="cuda"):
             args, _ = mf.cut_problem(g, torch.where(active, 0.0, g.la_d1),
                                      cost, CUT_TOL)
             kw = dict(shifts=g.shifts, check_every=250)
-            res_k = mf.fused_pdhg_min_cut(*args, 100_000, **kw)
             res_p = mf.pdhg_min_cut_plain(*args, 100_000, **kw)
             eu, ev, _ = g.host_coo()
             w = args[0].reshape(-1).cpu().numpy()
             c = args[1].reshape(-1).cpu().numpy()
             tol = float(args[6])
-            vals, its = [], []
-            for x, _, gap, t_best, it in (res_k, res_p):
-                check(float(gap) <= tol, f"mincut {side} {dtype}: gap "
-                      f"{float(gap):.4g} above the certificate {tol:.4g}")
-                vals.append(cut_value(eu, ev, w, c, (x > t_best).reshape(-1)
-                                      .cpu().numpy()))
-                its.append(int(it))
-            check(abs(vals[0] - vals[1]) <= 2 * tol, f"mincut {side} "
-                  f"{dtype}: cut values {vals[0]} vs plain {vals[1]}")
-            err = max(max_err(res_k[0], res_p[0]), max_err(res_k[1],
-                                                           res_p[1]))
-            if dtype == torch.float64:
-                check(its[0] == its[1], f"mincut {side}: {its[0]} steps vs "
-                      f"plain {its[1]}")
-                check(err <= F64_TOL, f"mincut {side} float64: x/z err "
-                      f"{err:.3g}")
-            errs[(side, dtype)] = err
-            ms = cuda_ms(lambda: mf.fused_pdhg_min_cut(*args, 100_000, **kw),
-                         5)
+            chosen = mf.choose_schedule(side, side, g.shifts, dtype,
+                                        *mf.device_limits(device))[0]
+            scheds = [chosen] + (["stream"] if chosen != "stream" else [])
+            val_p = cut_value(eu, ev, w, c, (res_p[0] > res_p[3]).reshape(-1)
+                              .cpu().numpy())
+            it_p = int(res_p[4])
+            check(float(res_p[2]) <= tol, f"mincut {side} {dtype}: plain "
+                  f"gap {float(res_p[2]):.4g} above {tol:.4g}")
             plain_ms = cuda_ms(
                 lambda: mf.pdhg_min_cut_plain(*args, 100_000, **kw), 1)
-            out[(side, dtype)] = dict(ms=ms, plain_ms=plain_ms, it=its[0],
-                                      v=g.num_vertices, f=len(g.shifts))
-            print(f"[mincut_fused] {str(dtype)[6:]} {side}x{side} F=2: "
-                  f"certified cut in {its[0]} steps (plain {its[1]}), cut "
-                  f"value {vals[0]:.9g} vs plain {vals[1]:.9g} (tol "
-                  f"{2 * tol:.3g}), x/z max|kernel-plain| {err:.3e}; "
-                  f"{ms:.3f} ms per cut ({ms * 1e3 / its[0]:.2f} us per "
-                  f"step), plain {plain_ms:.1f} ms", flush=True)
+            for sched in scheds:
+                res_k = mf.fused_pdhg_min_cut(*args, 100_000, schedule=sched,
+                                              **kw)
+                check(mf.fused_pdhg_min_cut.last_schedule == sched,
+                      f"mincut {side} {dtype}: ran "
+                      f"{mf.fused_pdhg_min_cut.last_schedule}, not {sched}")
+                x, _, gap, t_best, it = res_k
+                it = int(it)
+                check(float(gap) <= tol, f"mincut {side} {dtype} {sched}: "
+                      f"gap {float(gap):.4g} above the certificate "
+                      f"{tol:.4g}")
+                val = cut_value(eu, ev, w, c, (x > t_best).reshape(-1)
+                                .cpu().numpy())
+                check(abs(val - val_p) <= 2 * tol, f"mincut {side} {dtype} "
+                      f"{sched}: cut values {val} vs plain {val_p}")
+                err = max(max_err(res_k[0], res_p[0]),
+                          max_err(res_k[1], res_p[1]))
+                if dtype == torch.float64:
+                    check(it == it_p, f"mincut {side}: {it} steps vs plain "
+                          f"{it_p}")
+                    check(err <= F64_TOL, f"mincut {side} float64: x/z err "
+                          f"{err:.3g}")
+                ms = cuda_ms(lambda: mf.fused_pdhg_min_cut(
+                    *args, 100_000, schedule=sched, **kw), 5)
+                us_step = ms * 1e3 / it
+                bound_us = (mincut_step_bytes(g.num_vertices, len(g.shifts),
+                                              args[0].element_size())
+                            / rate * 1e6)
+                if sched == chosen:
+                    errs[(side, dtype)] = err
+                    out[(side, dtype)] = dict(
+                        ms=ms, plain_ms=plain_ms, it=it, schedule=sched,
+                        us_per_step=us_step, v=g.num_vertices,
+                        f=len(g.shifts), stream_bound_us_per_step=bound_us)
+                else:
+                    out[(side, dtype)]["stream_us_per_step"] = us_step
+                tag = " (chosen)" if sched == chosen else ""
+                print(f"[mincut_fused] {str(dtype)[6:]} {side}x{side} F=2 "
+                      f"schedule {sched}{tag}: certified cut in {it} steps (plain {it_p}), cut "
+                      f"value {val:.9g} vs plain {val_p:.9g} (tol "
+                      f"{2 * tol:.3g}), x/z max|kernel-plain| {err:.3e}; "
+                      f"{ms:.3f} ms per cut ({us_step:.2f} us per step; "
+                      f"streamed step bound {bound_us:.2f} us), plain "
+                      f"{plain_ms:.1f} ms", flush=True)
     return errs, out
 
 
@@ -988,6 +1061,112 @@ def phase_cp_chain(f_ref, device="cuda"):
     check(f <= f_ref * (1 + 1e-3), f"chained objective {f} worse than the "
           f"float64 run {f_ref} by more than 1e-3 relative")
     return t_best
+
+
+def phase_cp_reduced_options(f_ref, device="cuda", device_loop=False):
+    """``[cp-reduced-options]``: the EEG problem on the card with the
+    default ``fused="auto"`` and PFDR options the whole-solve kernels do
+    not serve.  Reconditioning (``PFDR_difRcd=1e-3``) through the API's
+    host cut (and, with ``device_loop``, reconditioning with PFDR progress
+    lines through the per-iteration device loop: about 90 s of host-bound
+    staged iterations, so ``python3 chip_smoke.py --reduced-options`` runs
+    it and the full run does not) solves its reduced problems in the staged
+    loop (no ``solve_small`` / ``solve_fused`` launch), each objective
+    within 1e-3 relative of the float64 run ``f_ref``
+    (``bench.py:331-347``'s rule); ``fused="on"`` with them still raises,
+    in both loops."""
+    import torch
+    from cp_pfdr_graph_d1_tpu_torch import (CPOptions, DenseOp, PFDROptions,
+                                            StencilGraphD1, api)
+    from cp_pfdr_graph_d1_tpu_torch.solvers.cut_pursuit import \
+        cp_quadratic_d1
+    a, y = build_grid_problem()
+    g = StencilGraphD1.create((V_SIDE, V_SIDE), {(0, 1): LA_D1, (1, 0): LA_D1},
+                              dtype=torch.float32, device=device)
+    eu, ev, la = g.host_coo()
+    la_l1 = np.full(a.shape[1], LA_L1, np.float32)
+    op, obs = DenseOp(torch.as_tensor(a, device=device)), torch.as_tensor(
+        y, device=device)
+
+    def run_device_loop(fused):
+        pf = PFDROptions(rho=1.5, dif_rcd=1e-3, dif_tol=1e-7, it_max=10_000,
+                         verbose=1000, fused=fused)
+        return cp_quadratic_d1(op, obs, g, la_l1=la_l1, positivity=True,
+                               opt=CPOptions(dif_tol=1e-4, it_max=15,
+                                             pfdr=pf, cut="device",
+                                             chain="off"))
+
+    def host_cut(fused):
+        opt = api._cp_options(1e-4, 15, 1.5, 1e-3, 1e-3, 1e-7, 10_000, 0)
+        opt = dataclasses.replace(opt, pfdr=dataclasses.replace(
+            opt.pfdr, fused=fused))
+        return cp_quadratic_d1(op, obs, g, la_l1=la_l1, positivity=True,
+                               opt=opt)
+
+    runs = {
+        "host cut, PFDR_difRcd=1e-3": lambda: api.cp_quadratic_d1_l1(
+            y, a, None, None, None, La_l1=la_l1, positivity=True,
+            CP_difTol=1e-4, CP_itMax=15, PFDR_rho=1.5, PFDR_difRcd=1e-3,
+            PFDR_difTol=1e-7, PFDR_itMax=10_000, graph=g, device=device)}
+    if device_loop:
+        runs["device loop, dif_rcd=1e-3 verbose=1000"] = lambda: \
+            run_device_loop("auto")
+    for name, run in runs.items():
+        before = read_counts()
+        sync(device)
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            out = run()
+        dt = time.perf_counter() - t0
+        grew = {k: v - before[k] for k, v in read_counts().items() if
+                v != before[k]}
+        cv, rx = (out.Cv, out.rX) if hasattr(out, "Cv") else (out.cv,
+                                                              out.rx)
+        x = rx[cv]
+        check(np.all(np.isfinite(x)) and x.shape == (V_SIDE * V_SIDE,),
+              f"cp-reduced-options {name}: result not finite or of the "
+              f"wrong shape")
+        f = objective(x, a, y, eu, ev, la)
+        print(f"[cp-reduced-options] {name}, fused='auto': {dt * 1e3:.1f} "
+              f"ms, {len(rx)} components, objective {f:.7g} against "
+              f"float64 {f_ref:.7g} (rel {(f - f_ref) / f_ref:.3e}); "
+              f"launches {grew}", flush=True)
+        check(grew.get("solve_small", 0) == 0
+              and grew.get("solve_fused", 0) == 0,
+              f"cp-reduced-options {name}: a whole-solve kernel ran")
+        check(abs(f - f_ref) <= 1e-3 * abs(f_ref),
+              f"cp-reduced-options {name}: objective {f} vs float64 "
+              f"{f_ref}: more than 1e-3 relative apart")
+    for name, run in (("host cut", host_cut),
+                      ("device loop", run_device_loop)):
+        try:
+            run("on")
+        except NotImplementedError as err:
+            print(f"[cp-reduced-options] {name}, fused='on' with dif_rcd="
+                  f"1e-3 raises: {err}", flush=True)
+        else:
+            check(False, f"cp-reduced-options: {name}, fused='on' with "
+                  f"dif_rcd > 0 did not raise")
+
+
+def reduced_options_only():
+    """``python3 chip_smoke.py --reduced-options``: ``[cp-reduced-options]``
+    with the device loop, against the float64 host-route run on the CPU
+    (``phase_cp``'s reference)."""
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    phase_env()
+    phase_build()
+    import torch
+    from cp_pfdr_graph_d1_tpu_torch import StencilGraphD1
+    a, y = build_grid_problem()
+    g64 = StencilGraphD1.create((V_SIDE, V_SIDE),
+                                {(0, 1): LA_D1, (1, 0): LA_D1},
+                                dtype=torch.float64, device="cpu")
+    ref = run_cp(g64, a.astype(np.float64), y.astype(np.float64),
+                 np.float64, "cpu", host_small="on")
+    eu, ev, la = g64.host_coo()
+    phase_cp_reduced_options(objective(ref.rX[ref.Cv], a, y, eu, ev, la),
+                             device_loop=True)
 
 
 def phase_cp_device(device="cuda"):
@@ -1806,6 +1985,80 @@ def time_pair(kern, plain, reps=200, plain_reps=50):
                 device_us=device_profile(kern, reps)[0])
 
 
+def host_us(fn, n=10_000):
+    """Host microseconds per call of ``fn`` over ``n`` calls
+    (``time.perf_counter_ns``), after one call; the card is synchronised
+    before and after."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter_ns()
+    for _ in range(n):
+        fn()
+    t1 = time.perf_counter_ns()
+    torch.cuda.synchronize()
+    return (t1 - t0) / n / 1e3
+
+
+def banded_host_costs(g, x, vu, vv):
+    """``[banded-host]``: host microseconds per call of each step of the
+    banded wrappers' launch path, on the mesh's float32 [V] field: the
+    steps of the former launch path (checks, ``edge_index()``,
+    ``_lib()``, two allocations, a device context with a new stream object,
+    ``contiguous()``) and the steps it takes now (the plan's key and
+    lookup, one allocation split in two rows, the raw stream, the
+    four-argument call through ``ctypes.PyDLL`` with its launch), then
+    whole calls beside ``index_select`` and two ``index_add_``.  The
+    ctypes call of eleven arguments that the old path made is gone and is
+    not timed here."""
+    import torch
+    from cp_pfdr_graph_d1_tpu_torch import _build
+    from cp_pfdr_graph_d1_tpu_torch.ops import banded
+    idx = g.edge_index()
+    both = torch.cat([idx.eu, idx.ev]).to(torch.int64)
+    shape = (g.num_edges,)
+    dev = x.get_device()
+    fn, plan, out_shape, index, _ = g._banded_plans[
+        ("gather", x.dtype, x.shape, dev)]
+    out = x.new_empty(out_shape)
+    _build.cuda_kernels()._cp_banded_probe = True  # the old _lib()'s flag
+
+    def old_context():
+        with torch.cuda.device(x.device):
+            return torch.cuda.current_stream().cuda_stream
+
+    steps = {
+        "old: _check_float": lambda: banded._check_float("x", x, x),
+        "old: graph.edge_index()": g.edge_index,
+        "old: _lib() (library lookup, getattr and flag)": lambda: getattr(
+            _build.cuda_kernels(), "_cp_banded_probe", False),
+        "old: two new_empty": lambda: (x.new_empty(shape),
+                                       x.new_empty(shape)),
+        "old: device context + current_stream()": old_context,
+        "old: x.contiguous()": x.contiguous,
+        "new: plan key + lookup": lambda: g._banded_plans.get(
+            ("gather", x.dtype, x.shape, x.get_device())),
+        "new: x.is_contiguous()": x.is_contiguous,
+        "new: x.new_empty [2, E] + unbind": lambda: x.new_empty(
+            out_shape).unbind(),
+        "new: raw stream": lambda: banded._raw_stream(index),
+        "new: ctypes call (PyDLL) + launch": lambda: fn(
+            plan, x.data_ptr(), out.data_ptr(), banded._raw_stream(index)),
+        "banded_gather": lambda: banded.banded_gather(g, x),
+        "graph.gather_endpoints": lambda: g.gather_endpoints(x),
+        "index_select": lambda: x.index_select(0, both),
+        "banded_scatter": lambda: banded.banded_scatter(g, vu, vv),
+        "graph.edge_to_vertex_sum": lambda: g.edge_to_vertex_sum(vu, vv),
+        "index_add_ x2": lambda: torch.zeros_like(x).index_add_(
+            0, g.eu, vu).index_add_(0, g.ev, vv),
+    }
+    costs = {name: host_us(f) for name, f in steps.items()}
+    print("[banded-host] host us per call, 10,000 calls each, mesh float32 "
+          "[V]: " + "; ".join(f"{k} {v:.2f}" for k, v in costs.items()),
+          flush=True)
+    return costs
+
+
 def phase_banded_transfers(device="cuda"):
     """``banded_gather`` and ``banded_scatter`` against their plain versions
     on the mesh's banded container and on a star graph (vertex 0 joined to
@@ -1877,6 +2130,8 @@ def phase_banded_transfers(device="cuda"):
                         v=g.num_vertices, e=g.num_edges,
                         long_rows=int(idx.long_rows.numel()),
                         gather=t_g, scatter=t_s)
+                    if gname == "mesh":
+                        out["host"] = banded_host_costs(g, x, vu, vv)
                     line += "; float32 per call:"
                     for kname, t, lib in (("gather", t_g, "index_select"),
                                           ("scatter", t_s, "index_add_ x2")):
@@ -3200,6 +3455,7 @@ def main():
             launches[k] += v
     check(all(v > 0 for v in launches.values()),
           f"a kernel was launched on no main path: {launches}")
+    phase_cp_reduced_options(f_ref)
     phase_profile()
     profile_mesh()
     halo_busy_p1()
@@ -3284,6 +3540,13 @@ def main():
              max_abs_err_f64=max(v for (_, d), v in mc_err.items()
                                  if d == torch.float64),
              ms=mc["ms"], plain_ms=mc["plain_ms"],
+             schedule=mc["schedule"],
+             stream_bound_ms_per_step=mc["stream_bound_us_per_step"] * 1e-3,
+             per_step_us={f"{side}x{side} {str(d)[6:]}": {
+                 k: v for k, v in t.items()
+                 if k in ("schedule", "us_per_step", "stream_us_per_step",
+                          "stream_bound_us_per_step", "it")}
+                 for (side, d), t in mc_t.items()},
              shape=f"{SIDE_524K}x{SIDE_524K} F=2, one certified cut of "
                    f"{mc['it']} steps", cp_simplex_cut=cps_cut),
         dict(name="components_fused", source="components_fused.cu",
@@ -3329,6 +3592,7 @@ def main():
                      if kern == "gather" else
                      "two index_add_ calls into zeros (float atomics: not "
                      "deterministic)"),
+            host_us_per_call=bt["host"],
             star=dict(bt["star"][kern], v=bt["star"]["v"],
                       e=bt["star"]["e"], long_rows=bt["star"]["long_rows"]),
             shape=f"mesh V={v_eeg} E={eb} (banded order, padded), [V] "
@@ -3400,6 +3664,55 @@ def main():
         "count": torch.cuda.device_count()}}), flush=True)
 
 
+def compare_timings(device="cuda"):
+    """``python3 chip_smoke.py --compare``: timings that another checkout of
+    the port can run with its own kernels (copy this script into its root
+    and run it there), so that two versions are compared on one card in
+    one call: ``mincut_fused`` microseconds per step at 140 x 140,
+    512 x 512 and 724 x 724 in float64 and float32 (the schedule the
+    kernel takes; phase_mincut's cuts), and ``banded_gather`` /
+    ``banded_scatter`` per call on the mesh's float32 [V] field beside
+    ``index_select`` and two ``index_add_`` calls, by CUDA events (200
+    calls) and by the host clock (10,000 calls)."""
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    phase_env()
+    phase_build()
+    import torch
+    from cp_pfdr_graph_d1_tpu_torch.ops import banded
+    from cp_pfdr_graph_d1_tpu_torch.ops import mincut_fused as mf
+    for side in MINCUT_SIDES:
+        for dtype in (torch.float64, torch.float32):
+            g, active, r = masked_stencil(side, dtype, device, 0.1, 0)
+            cost = torch.as_tensor(r.standard_normal(g.num_vertices),
+                                   dtype=dtype, device=device)
+            args, _ = mf.cut_problem(g, torch.where(active, 0.0, g.la_d1),
+                                     cost, CUT_TOL)
+            kw = dict(shifts=g.shifts, check_every=250)
+            it = int(mf.fused_pdhg_min_cut(*args, 100_000, **kw)[4])
+            ms = cuda_ms(lambda: mf.fused_pdhg_min_cut(*args, 100_000, **kw),
+                         5)
+            sched = getattr(mf.fused_pdhg_min_cut, "last_schedule", None)
+            print(f"[compare] mincut_fused {str(dtype)[6:]} {side}x{side}: "
+                  f"{it} steps, {ms:.4f} ms per cut, {ms * 1e3 / it:.3f} us "
+                  f"per step (schedule {sched})", flush=True)
+    g = mesh_graph("banded", torch.float32, device)
+    r = np.random.default_rng(5)
+    x, vu, vv = (torch.as_tensor(r.normal(size=n), dtype=torch.float32,
+                                 device=device)
+                 for n in (g.num_vertices, g.num_edges, g.num_edges))
+    idx = g.edge_index()
+    both = torch.cat([idx.eu, idx.ev]).to(torch.int64)
+    calls = {"banded_gather": lambda: banded.banded_gather(g, x),
+             "index_select": lambda: x.index_select(0, both),
+             "banded_scatter": lambda: banded.banded_scatter(g, vu, vv),
+             "index_add_ x2": lambda: torch.zeros_like(x).index_add_(
+                 0, g.eu, vu).index_add_(0, g.ev, vv)}
+    print("[compare] banded per call, mesh float32 [V], us (CUDA events, "
+          "200 calls / host clock, 10,000 calls): " + "; ".join(
+              f"{k} {cuda_ms(f, 200) * 1e3:.2f} / {host_us(f):.2f}"
+              for k, f in calls.items()), flush=True)
+
+
 def profile_only():
     """``python3 chip_smoke.py --profile-mesh``: the mesh paths' profile
     alone, in a fresh process."""
@@ -3412,5 +3725,9 @@ def profile_only():
 if __name__ == "__main__":
     if sys.argv[1:] == ["--profile-mesh"]:
         profile_only()
+    elif sys.argv[1:] == ["--compare"]:
+        compare_timings()
+    elif sys.argv[1:] == ["--reduced-options"]:
+        reduced_options_only()
     else:
         main()

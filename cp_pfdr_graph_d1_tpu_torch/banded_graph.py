@@ -40,6 +40,7 @@ class BandedGraphD1(GraphD1):
         super().__init__(eu, ev, la_d1, num_vertices)
         self.mode = mode
         self._edge_index = None
+        self._banded_plans = {}  # ops.banded's launch plans
 
     @classmethod
     def create(cls, eu, ev, la_d1, num_vertices: Optional[int] = None,
@@ -87,12 +88,14 @@ class BandedGraphD1(GraphD1):
     def gather_endpoints(self, x):
         if self.mode == "jnp":
             return banded_gather_plain(self, x)
-        return banded_gather(self, x.contiguous())
+        return banded_gather(self, x if x.is_contiguous() else x.contiguous())
 
     def edge_to_vertex_sum(self, vals_u, vals_v):
         if self.mode == "jnp":
             return banded_scatter_plain(self, vals_u, vals_v)
-        return banded_scatter(self, vals_u.contiguous(), vals_v.contiguous())
+        if not (vals_u.is_contiguous() and vals_v.is_contiguous()):
+            vals_u, vals_v = vals_u.contiguous(), vals_v.contiguous()
+        return banded_scatter(self, vals_u, vals_v)
 
     def edge_to_vertex_min(self, vals_u, vals_v, init):
         """Scatter-min (a minimum does not depend on the order, so it is

@@ -107,30 +107,59 @@ inline int grid_for(int64_t n) {
   return b < 1 ? 1 : (int)b;
 }
 
+// What a launch needs of a graph and a field shape, prepared once per
+// (graph, dtype, shape, device) by the wrapper: the device index arrays and
+// their sizes.  A launch then marshals four arguments.
+struct BandedPlan {
+  const int *eu, *ev, *offsets, *slots, *long_rows;
+  int ne, nv, n_long, k, device;
+};
+
+// runs launch() with the plan's device current, restoring the caller's
+template <typename Launch>
+inline int on_device(int device, Launch launch) {
+  int prev = 0;
+  cudaError_t err = cudaGetDevice(&prev);
+  if (err == cudaSuccess && prev != device) err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = launch();
+  if (prev != device) {
+    const cudaError_t back = cudaSetDevice(prev);
+    if (err == cudaSuccess) err = back;
+  }
+  return static_cast<int>(err);
+}
+
+// out: [2, E, K], the u-ends then the v-ends
 template <typename T>
-int banded_gather(const T *x, const int *eu, const int *ev, T *ou, T *ov,
-                  int ne, int k, void *stream) {
-  if (ne < 1 || k < 1) return -1;
-  const int64_t n = (int64_t)ne * k;
-  banded_gather_kernel<T><<<grid_for(n), kBandedBlock, 0,
-                            static_cast<cudaStream_t>(stream)>>>(
-      x, eu, ev, ou, ov, n, k);
-  return static_cast<int>(cudaGetLastError());
+int banded_gather(const BandedPlan *p, const T *x, T *out, void *stream) {
+  if (p->ne < 1 || p->k < 1) return -1;
+  return on_device(p->device, [&] {
+    const int64_t n = (int64_t)p->ne * p->k;
+    banded_gather_kernel<T><<<grid_for(n), kBandedBlock, 0,
+                              static_cast<cudaStream_t>(stream)>>>(
+        x, p->eu, p->ev, out, out + n, n, p->k);
+    return cudaGetLastError();
+  });
 }
 
 template <typename T>
-int banded_scatter(const T *vu, const T *vv, const int *offsets,
-                   const int *slots, const int *long_rows, int n_long, T *out,
-                   int nv, int ne, int k, void *stream) {
-  if (nv < 1 || ne < 0 || k < 1 || n_long < 0 || k > 65535) return -1;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  banded_scatter_rows_kernel<T><<<grid_for((int64_t)nv * k), kBandedBlock, 0,
-                                  s>>>(vu, vv, offsets, slots, out, nv, ne, k);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess || n_long == 0) return static_cast<int>(err);
-  banded_scatter_long_kernel<T><<<dim3(n_long, k), kBandedBlock, 0, s>>>(
-      vu, vv, offsets, slots, long_rows, out, ne, k);
-  return static_cast<int>(cudaGetLastError());
+int banded_scatter(const BandedPlan *p, const T *vu, const T *vv, T *out,
+                   void *stream) {
+  if (p->nv < 1 || p->ne < 0 || p->k < 1 || p->n_long < 0 || p->k > 65535)
+    return -1;
+  return on_device(p->device, [&] {
+    cudaStream_t s = static_cast<cudaStream_t>(stream);
+    banded_scatter_rows_kernel<T><<<grid_for((int64_t)p->nv * p->k),
+                                    kBandedBlock, 0, s>>>(
+        vu, vv, p->offsets, p->slots, out, p->nv, p->ne, p->k);
+    cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess || p->n_long == 0) return err;
+    banded_scatter_long_kernel<T><<<dim3(p->n_long, p->k), kBandedBlock, 0,
+                                    s>>>(vu, vv, p->offsets, p->slots,
+                                         p->long_rows, out, p->ne, p->k);
+    return cudaGetLastError();
+  });
 }
 
 }  // namespace cp_pfdr
@@ -139,17 +168,17 @@ extern "C" {
 
 int cp_banded_long_row() { return cp_pfdr::kLongRow; }
 
-#define CP_BANDED_ENTRY(SUFFIX, T)                                           \
-  int cp_banded_gather_##SUFFIX(const T *x, const int *eu, const int *ev,    \
-                                T *ou, T *ov, int ne, int k, void *stream) { \
-    return cp_pfdr::banded_gather<T>(x, eu, ev, ou, ov, ne, k, stream);      \
-  }                                                                          \
-  int cp_banded_scatter_##SUFFIX(const T *vu, const T *vv,                   \
-                                 const int *offsets, const int *slots,       \
-                                 const int *long_rows, int n_long, T *out,   \
-                                 int nv, int ne, int k, void *stream) {      \
-    return cp_pfdr::banded_scatter<T>(vu, vv, offsets, slots, long_rows,     \
-                                      n_long, out, nv, ne, k, stream);       \
+int cp_banded_plan_size() { return (int)sizeof(cp_pfdr::BandedPlan); }
+
+#define CP_BANDED_ENTRY(SUFFIX, T)                                         \
+  int cp_banded_gather_##SUFFIX(const cp_pfdr::BandedPlan *plan,           \
+                                const T *x, T *out, void *stream) {        \
+    return cp_pfdr::banded_gather<T>(plan, x, out, stream);                \
+  }                                                                        \
+  int cp_banded_scatter_##SUFFIX(const cp_pfdr::BandedPlan *plan,          \
+                                 const T *vu, const T *vv, T *out,         \
+                                 void *stream) {                           \
+    return cp_pfdr::banded_scatter<T>(plan, vu, vv, out, stream);          \
   }
 
 CP_BANDED_ENTRY(f32, float)

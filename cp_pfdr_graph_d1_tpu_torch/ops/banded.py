@@ -22,6 +22,7 @@ every run.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import NamedTuple
 
 import numpy as np
@@ -149,22 +150,36 @@ def banded_scatter_plain(graph, vals_u, vals_v):
                                 offsets=idx.offsets.to(torch.int64))
 
 
+class _Plan(ctypes.Structure):
+    """``BandedPlan`` of ``csrc/banded.cu``."""
+    _fields_ = [("eu", ctypes.c_void_p), ("ev", ctypes.c_void_p),
+                ("offsets", ctypes.c_void_p), ("slots", ctypes.c_void_p),
+                ("long_rows", ctypes.c_void_p), ("ne", ctypes.c_int),
+                ("nv", ctypes.c_int), ("n_long", ctypes.c_int),
+                ("k", ctypes.c_int), ("device", ctypes.c_int)]
+
+
+@functools.cache
 def _lib():
-    lib = _build.cuda_kernels()
-    if not getattr(lib, "_cp_banded_declared", False):
-        ptr, i = ctypes.c_void_p, ctypes.c_int
-        for t in ("f32", "f64"):
-            fn = getattr(lib, f"cp_banded_gather_{t}")
-            fn.restype = i
-            fn.argtypes = [ptr] * 5 + [i, i, ptr]
-            fn = getattr(lib, f"cp_banded_scatter_{t}")
-            fn.restype = i
-            fn.argtypes = [ptr] * 5 + [i, ptr, i, i, i, ptr]
-        lib.cp_banded_long_row.restype = i
-        lib.cp_banded_long_row.argtypes = []
-        if lib.cp_banded_long_row() != LONG_ROW:
-            raise RuntimeError("LONG_ROW disagrees with the CUDA source")
-        lib._cp_banded_declared = True
+    """The kernels' library, opened as a ``ctypes.PyDLL``: a call keeps
+    the GIL (the entries only enqueue launches), which saves its release
+    and reacquisition on every launch."""
+    lib = ctypes.PyDLL(_build.cuda_kernels()._name)
+    ptr, i = ctypes.c_void_p, ctypes.c_int
+    for t in ("f32", "f64"):
+        fn = getattr(lib, f"cp_banded_gather_{t}")
+        fn.restype = i
+        fn.argtypes = [ptr] * 4
+        fn = getattr(lib, f"cp_banded_scatter_{t}")
+        fn.restype = i
+        fn.argtypes = [ptr] * 5
+    for name in ("cp_banded_long_row", "cp_banded_plan_size"):
+        getattr(lib, name).restype = i
+        getattr(lib, name).argtypes = []
+    if lib.cp_banded_long_row() != LONG_ROW:
+        raise RuntimeError("LONG_ROW disagrees with the CUDA source")
+    if lib.cp_banded_plan_size() != ctypes.sizeof(_Plan):
+        raise RuntimeError("_Plan disagrees with the CUDA source")
     return lib
 
 
@@ -181,64 +196,89 @@ def _check_float(name, a, like):
         raise ValueError(f"{name} must be 1-D or 2-D, got {tuple(a.shape)}")
 
 
+def _make_plan(graph, kind, key, a, rows):
+    """Checks a gather or scatter input ``a`` once for its (dtype, shape,
+    device) and prepares the launch: ``(C function, plan address, output
+    shape, device index, the plan)``.  ``rows`` is the leading size ``a``
+    must have."""
+    _check_float(kind, a, a)
+    if a.shape[0] != rows:
+        raise ValueError(f"{kind} input has {a.shape[0]} rows; expected "
+                         f"{rows} for {graph.num_vertices} vertices and "
+                         f"{graph.num_edges} edges")
+    idx = graph.edge_index()
+    if idx.eu.device != a.device:
+        raise ValueError(f"input on {a.device}, the graph on "
+                         f"{idx.eu.device}")
+    lib = _lib()
+    k = 1 if a.ndim == 1 else a.shape[1]
+    plan = _Plan(idx.eu.data_ptr(), idx.ev.data_ptr(),
+                 idx.offsets.data_ptr(), idx.slots.data_ptr(),
+                 idx.long_rows.data_ptr(), graph.num_edges,
+                 graph.num_vertices, idx.long_rows.numel(), k,
+                 a.device.index)
+    sfx = "f32" if a.dtype == torch.float32 else "f64"
+    if kind == "gather":
+        out_shape = (2, graph.num_edges) + tuple(a.shape[1:])
+    else:
+        out_shape = (graph.num_vertices,) + tuple(a.shape[1:])
+    entry = (getattr(lib, f"cp_banded_{kind}_{sfx}"), ctypes.addressof(plan),
+             out_shape, a.device.index, plan)
+    graph._banded_plans[key] = entry
+    return entry
+
+
+# the current CUDA stream of a device (by index) as an integer handle;
+# absent from builds of torch without CUDA, whose tensors never get here
+_raw_stream = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+
+
 def banded_gather(graph, x):
-    """Endpoint values of every edge of ``graph``: ``(x[eu], x[ev])`` for a
-    [V] or [V, K] field ``x``."""
+    """Endpoint values of every edge of a :class:`..BandedGraphD1`:
+    ``(x[eu], x[ev])`` for a contiguous [V] or [V, K] field ``x``; two rows
+    of one [2, E(, K)] tensor.  The checks run once per (graph, dtype,
+    shape, device) and their plan stays on the graph
+    (``graph._banded_plans``); each call then allocates once and marshals
+    four arguments."""
     if not x.is_cuda:
         return banded_gather_plain(graph, x)
-    _check_float("x", x, x)
-    if x.shape[0] != graph.num_vertices:
-        raise ValueError(f"x has {x.shape[0]} rows; the graph has "
-                         f"{graph.num_vertices} vertices")
-    idx = graph.edge_index()
-    if idx.eu.device != x.device:
-        raise ValueError(f"x is on {x.device}, the graph on {idx.eu.device}")
-    lib = _lib()
-    ne = graph.num_edges
-    k = 1 if x.ndim == 1 else x.shape[1]
-    shape = (ne,) + tuple(x.shape[1:])
-    ou = x.new_empty(shape)
-    ov = x.new_empty(shape)
-    fn = (lib.cp_banded_gather_f32 if x.dtype == torch.float32
-          else lib.cp_banded_gather_f64)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = fn(x.data_ptr(), idx.eu.data_ptr(), idx.ev.data_ptr(),
-                ou.data_ptr(), ov.data_ptr(), ne, k, stream)
+    key = ("gather", x.dtype, x.shape, x.get_device())
+    entry = graph._banded_plans.get(key)
+    if entry is None:
+        entry = _make_plan(graph, "gather", key, x, graph.num_vertices)
+    if not x.is_contiguous():
+        raise ValueError("x is not contiguous")
+    fn, plan, out_shape, index, _ = entry
+    out = x.new_empty(out_shape)
+    rc = fn(plan, x.data_ptr(), out.data_ptr(), _raw_stream(index))
     if rc != 0:
         raise RuntimeError(f"banded gather launch failed (CUDA error {rc})")
     banded_gather.launches += 1
-    return ou, ov
+    return out.unbind()
 
 
 def banded_scatter(graph, vals_u, vals_v):
     """``out[v] = sum_{eu[e]==v} vals_u[e] + sum_{ev[e]==v} vals_v[e]`` for
-    [E] or [E, K] edge values, each vertex's slots summed in a fixed
-    order."""
+    contiguous [E] or [E, K] edge values, each vertex's slots summed in a
+    fixed order.  Checked once per (graph, dtypes, shapes, devices), as
+    :func:`banded_gather`."""
     if not vals_u.is_cuda:
         return banded_scatter_plain(graph, vals_u, vals_v)
-    _check_float("vals_u", vals_u, vals_u)
-    _check_float("vals_v", vals_v, vals_u)
-    ne = graph.num_edges
-    if vals_u.shape[0] != ne or vals_v.shape != vals_u.shape:
-        raise ValueError(f"edge values of shapes {tuple(vals_u.shape)} and "
-                         f"{tuple(vals_v.shape)}; the graph has {ne} edges")
-    idx = graph.edge_index()
-    if idx.eu.device != vals_u.device:
-        raise ValueError(f"values on {vals_u.device}, the graph on "
-                         f"{idx.eu.device}")
-    lib = _lib()
-    nv = graph.num_vertices
-    k = 1 if vals_u.ndim == 1 else vals_u.shape[1]
-    out = vals_u.new_empty((nv,) + tuple(vals_u.shape[1:]))
-    n_long = idx.long_rows.numel()
-    fn = (lib.cp_banded_scatter_f32 if vals_u.dtype == torch.float32
-          else lib.cp_banded_scatter_f64)
-    with torch.cuda.device(vals_u.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = fn(vals_u.data_ptr(), vals_v.data_ptr(), idx.offsets.data_ptr(),
-                idx.slots.data_ptr(), idx.long_rows.data_ptr(), n_long,
-                out.data_ptr(), nv, ne, k, stream)
+    key = ("scatter", vals_u.dtype, vals_u.shape, vals_u.get_device(),
+           vals_v.dtype, vals_v.shape, vals_v.get_device())
+    entry = graph._banded_plans.get(key)
+    if entry is None:
+        _check_float("vals_v", vals_v, vals_u)
+        if vals_v.shape != vals_u.shape:
+            raise ValueError(f"edge values of shapes {tuple(vals_u.shape)} "
+                             f"and {tuple(vals_v.shape)}")
+        entry = _make_plan(graph, "scatter", key, vals_u, graph.num_edges)
+    if not (vals_u.is_contiguous() and vals_v.is_contiguous()):
+        raise ValueError("edge values are not contiguous")
+    fn, plan, out_shape, index, _ = entry
+    out = vals_u.new_empty(out_shape)
+    rc = fn(plan, vals_u.data_ptr(), vals_v.data_ptr(), out.data_ptr(),
+            _raw_stream(index))
     if rc != 0:
         raise RuntimeError(f"banded scatter launch failed (CUDA error {rc})")
     banded_scatter.launches += 1

@@ -3,10 +3,24 @@ Hopper kernel ``csrc/mincut_fused.cu`` and its plain PyTorch version.
 
 Counterpart of ``cp_pfdr_graph_d1_tpu.ops.mincut_fused``
 (``fused_pdhg_min_cut``, ``device_cut_stencil_fused``).  The TPU kernel held
-every field in VMEM and admitted fields of at most 12 MB; the Hopper kernel
-keeps them in global memory and synchronises its grid between half-steps,
-so it takes any field size (the 724 x 724 grid of the device cut-pursuit
-problem included).
+every field in VMEM and admitted fields of at most 12 MB.  The Hopper
+kernel has two schedules (``csrc/mincut_fused.cu``), chosen by
+:func:`choose_schedule` from the field's size and type and the card's SM
+count and shared memory, never after a failure:
+
+* ``"shared"``: float32 fields of at most 4 families, a multiple of 4
+  columns wide, whose state fits the card's shared memory (the 140 x 140,
+  512 x 512 and 724 x 724 fields of the cut-pursuit problems with F = 2):
+  one block per SM holds a band of rows for the whole cut and exchanges
+  only its boundary rows with its two neighbours, with no grid barrier
+  per step;
+* ``"stream"``: float64 and larger fields: the fields stay in global
+  memory, with one grid barrier per step.
+
+Both recompute the duals of a cell's in-edges with the owner's arithmetic
+instead of synchronising between the half-steps, and round every product
+on its own, so their steps are :func:`pdhg_min_cut_plain`'s operation for
+operation.
 
 :func:`fused_pdhg_min_cut` launches the kernel for tensors on a CUDA device
 and runs :func:`pdhg_min_cut_plain` for tensors on the CPU; there is no
@@ -26,8 +40,10 @@ from .. import _build
 from .stencil_fused import MAX_FAMILIES, _roll2
 
 THRESHOLDS = 15    # cut candidates per certificate (coarea levels)
-_THREADS = 256     # kCutThreads of the CUDA source
+_THREADS = 256     # kCutThreads of the CUDA source (schedule "stream")
 _MAX_BLOCKS = 4096
+SCHEDULES = ("stream", "shared")  # kScheduleStream, kScheduleBand
+BAND_FAMILIES = 4  # kBandFamilies: schedule "shared" takes 1 to 4 families
 
 
 def thresholds(dtype, device):
@@ -83,6 +99,57 @@ def pdhg_min_cut_plain(w, c, tau, sigma, x0, z0, tol, it_max: int, *,
             torch.tensor(it, dtype=torch.int32, device=x0.device))
 
 
+def band_bytes(w: int, f: int, hd: int, n_r: int) -> int:
+    """Shared memory of one band of schedule ``"shared"`` (float32): xb, z,
+    w and sigma * w over its ``n_r`` rows and ``hd`` halo rows on each
+    side, x, c and tau over its rows, and the certificate's scratch (the
+    kernel's ``band_values``)."""
+    return 4 * (w * ((n_r + 2 * hd) * (1 + 3 * f) + 3 * n_r)
+                + 32 * (THRESHOLDS + 1) + THRESHOLDS + 1)
+
+
+def choose_schedule(h: int, w: int, shifts: Tuple, dtype, sm_count: int,
+                    smem_per_block: int):
+    """The kernel's schedule for an ``[h, w]`` field with these shift
+    families on a card of ``sm_count`` SMs and ``smem_per_block`` bytes of
+    shared memory per block: ``("shared", bands)`` or ``("stream", 0)``.
+
+    ``"shared"`` takes float32 fields of at most :data:`BAND_FAMILIES`
+    families, a multiple of 4 columns wide (the kernel works on groups of
+    four columns), cut into ``min(sm_count, h // hd)`` bands (``hd`` the
+    largest row shift, so that a band's halo lies in its two neighbours)
+    whose largest band fits one block's shared memory; any other field
+    streams.  A pure function of its arguments."""
+    hd = max(abs(int(dy)) for dy, _ in shifts)
+    if (dtype != torch.float32 or len(shifts) > BAND_FAMILIES or hd >= h
+            or w % 4 or any(abs(int(dx)) >= w for _, dx in shifts)):
+        return "stream", 0
+    bands = min(sm_count, h // hd if hd else h)
+    n_r = -(-h // bands)
+    if band_bytes(w, len(shifts), hd, n_r) > smem_per_block:
+        return "stream", 0
+    return "shared", bands
+
+
+_limits = {}
+
+
+def device_limits(device):
+    """``(SM count, opt-in shared memory per block in bytes)`` of a CUDA
+    device, asked once."""
+    index = torch.device(device).index
+    index = torch.cuda.current_device() if index is None else index
+    if index not in _limits:
+        sms, smem = ctypes.c_int(), ctypes.c_int()
+        rc = _lib().cp_device_limits(index, ctypes.byref(sms),
+                                     ctypes.byref(smem))
+        if rc != 0:
+            raise RuntimeError(f"device attributes of cuda:{index} (CUDA "
+                               f"error {rc})")
+        _limits[index] = (sms.value, smem.value)
+    return _limits[index]
+
+
 def _lib():
     lib = _build.cuda_kernels()
     if not getattr(lib, "_cp_mincut_declared", False):
@@ -90,12 +157,21 @@ def _lib():
         for name in ("cp_mincut_fused_f32", "cp_mincut_fused_f64"):
             fn = getattr(lib, name)
             fn.restype = i
-            fn.argtypes = ([ptr] * 12 + [i] + [ptr] * 3 + [i, i, i, ptr, i,
-                                                           i, ptr])
-        lib.cp_mincut_sums.restype = i
-        lib.cp_mincut_sums.argtypes = []
+            fn.argtypes = [ptr] * 14 + [i, i, i, ptr, i, i, i, i, ptr]
+        for name in ("cp_mincut_sums", "cp_mincut_band_families"):
+            getattr(lib, name).restype = i
+            getattr(lib, name).argtypes = []
+        lib.cp_mincut_band_bytes.restype = ctypes.c_longlong
+        lib.cp_mincut_band_bytes.argtypes = [i, i, i, i]
+        lib.cp_device_limits.restype = i
+        lib.cp_device_limits.argtypes = [i, ptr, ptr]
         if lib.cp_mincut_sums() != THRESHOLDS + 1:
             raise RuntimeError("THRESHOLDS disagrees with the CUDA source")
+        if lib.cp_mincut_band_families() != BAND_FAMILIES:
+            raise RuntimeError("BAND_FAMILIES disagrees with the CUDA "
+                               "source")
+        if lib.cp_mincut_band_bytes(724, 2, 1, 6) != band_bytes(724, 2, 1, 6):
+            raise RuntimeError("band_bytes disagrees with the CUDA source")
         lib._cp_mincut_declared = True
     return lib
 
@@ -129,7 +205,7 @@ def _check(w, vertex_fields, edge_fields, tol, shifts):
 
 
 def fused_pdhg_min_cut(w, c, tau, sigma, x0, z0, tol, it_max: int, *,
-                       shifts: Tuple, check_every: int):
+                       shifts: Tuple, check_every: int, schedule=None):
     """Complete PDHG min-cut of ``min <c, x> + sum_e w_e |x_u - x_v|`` over
     ``[0, 1]^V``.
 
@@ -141,6 +217,9 @@ def fused_pdhg_min_cut(w, c, tau, sigma, x0, z0, tol, it_max: int, *,
       tol: 0-d tensor, the absolute duality-gap certificate.
       it_max: step cap (the loop runs whole chunks of ``check_every``).
       shifts: ((dy, dx), ...) of the F shift families.
+      schedule: None takes :func:`choose_schedule`'s; ``"stream"`` or
+        ``"shared"`` names one, to time the two against each other (a
+        ``"shared"`` that the field does not fit raises).
 
     Returns:
       ``(x [H, W], z [F, H, W], gap, t_best, it)``, the last three 0-d
@@ -154,13 +233,31 @@ def fused_pdhg_min_cut(w, c, tau, sigma, x0, z0, tol, it_max: int, *,
         raise ValueError(f"check_every must be positive, got {check_every}")
     lib = _lib()
     h, wd = x0.shape
+    f = len(shifts)
+    kind, bands = choose_schedule(h, wd, shifts, x0.dtype,
+                                  *device_limits(x0.device))
+    if schedule not in (None, kind):
+        if schedule == "shared":
+            raise ValueError(f"a {h} x {wd} {x0.dtype} field with {f} "
+                             f"families does not fit schedule 'shared'")
+        if schedule != "stream":
+            raise ValueError(f"unknown schedule {schedule!r}: one of "
+                             f"{SCHEDULES}")
+        kind = schedule
     ts = thresholds(x0.dtype, x0.device)
     x = torch.empty_like(x0)
-    xb = torch.empty_like(x0)
     z = torch.empty_like(z0)
-    max_blocks = min(-(-h * wd // _THREADS), _MAX_BLOCKS)
-    partials = torch.empty(max_blocks * (THRESHOLDS + 1), dtype=x0.dtype,
-                           device=x0.device)
+    hw = h * wd
+    if kind == "shared":
+        # the boundary words (8 bytes: a float32 and its step) of xb and z
+        # by parity, then the certificate's partials
+        blocks = bands
+        ws_len = 4 * (1 + f) * hw + blocks * (THRESHOLDS + 1)
+    else:
+        # sigma * w, xb twice, the second z buffer, the partials
+        blocks = min(-(-hw // _THREADS), _MAX_BLOCKS)
+        ws_len = 2 * f * hw + 2 * hw + blocks * (THRESHOLDS + 1)
+    ws = torch.empty(ws_len, dtype=x0.dtype, device=x0.device)
     gap = torch.empty((), dtype=x0.dtype, device=x0.device)
     t_best = torch.empty((), dtype=x0.dtype, device=x0.device)
     it = torch.empty((), dtype=torch.int32, device=x0.device)
@@ -172,17 +269,20 @@ def fused_pdhg_min_cut(w, c, tau, sigma, x0, z0, tol, it_max: int, *,
         stream = torch.cuda.current_stream().cuda_stream
         rc = fn(w.data_ptr(), c.data_ptr(), tau.data_ptr(), sigma.data_ptr(),
                 x0.data_ptr(), z0.data_ptr(), ts.data_ptr(), tol.data_ptr(),
-                x.data_ptr(), xb.data_ptr(), z.data_ptr(),
-                partials.data_ptr(), max_blocks, gap.data_ptr(),
-                t_best.data_ptr(), it.data_ptr(), h, wd, len(shifts),
-                shifts_c, int(it_max), int(check_every), stream)
+                x.data_ptr(), z.data_ptr(), ws.data_ptr(), gap.data_ptr(),
+                t_best.data_ptr(), it.data_ptr(), h, wd, f, shifts_c,
+                int(it_max), int(check_every), SCHEDULES.index(kind), blocks,
+                stream)
     if rc != 0:
-        raise RuntimeError(f"mincut_fused launch failed (CUDA error {rc})")
+        raise RuntimeError(f"mincut_fused launch failed (CUDA error {rc}, "
+                           f"schedule {kind!r})")
     fused_pdhg_min_cut.launches += 1
+    fused_pdhg_min_cut.last_schedule = kind
     return x, z, gap, t_best, it
 
 
 fused_pdhg_min_cut.launches = 0
+fused_pdhg_min_cut.last_schedule = None
 
 
 def cut_problem(graph, wts, cost, tol_rel: float, x0=None, z0=None):

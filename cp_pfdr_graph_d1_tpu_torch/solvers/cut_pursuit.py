@@ -19,10 +19,11 @@ problem goes, in this order, to:
    and one launch of :mod:`..ops.solve_small` (or, from 4096 reduced
    vertices on, of :mod:`..ops.solve_fused`) runs the whole PFDR solve.
    PFDR options the kernels do not serve (reconditioning, progress lines)
-   raise;
+   send the reduced solves down this list with ``"auto"`` and raise with
+   ``"on"`` (:func:`.cut_pursuit_common.reduced_solve_route`);
 2. the native C++ PFDR on the host, only with ``host_small="on"``;
 3. the staged PyTorch PFDR loop of :mod:`.pfdr_quadratic`
-   (``pfdr.fused="off"``, or CPU tensors with ``"auto"``).
+   (``pfdr.fused="off"``, CPU tensors with ``"auto"``, or those options).
 
 ``cut="device"`` keeps the whole iteration on the tensors' device: the
 chained loop (:mod:`.cut_pursuit_chain`) or the per-iteration device loop
@@ -51,7 +52,7 @@ from .cut_pursuit_common import (bucket, build_reduced_graph,
                                  connected_components, host_reduce_dense,
                                  host_reduce_diag, host_reduce_gram,
                                  machine_eps, make_reduced_container, np64,
-                                 pad_reduced_graph)
+                                 pad_reduced_graph, reduced_solve_route)
 from .pfdr_quadratic import (VertexProx, initial_precondition,
                              pfdr_quadratic_d1)
 
@@ -461,18 +462,8 @@ def cp_quadratic_d1(op: QuadOp, obs, graph: GraphD1, *,
                     if la_l1 is not None else None)
 
     # reduced problems go to the solve_small kernel on a CUDA device (its
-    # wrapper runs the plain version for CPU tensors, with fused="on");
-    # options the kernel cannot serve raise instead of leaving it
-    dev_route = (opt.pfdr.fused != "off"
-                 and (obs.is_cuda or opt.pfdr.fused == "on"))
-    if dev_route:
-        for name, value in (("dif_rcd", opt.pfdr.dif_rcd),
-                            ("verbose", opt.pfdr.verbose)):
-            if value:
-                raise NotImplementedError(
-                    f"PFDROptions.{name}={value!r} is not supported by the "
-                    f"solve_small kernel; pass PFDROptions(fused='off') to "
-                    f"solve the reduced problems in the staged loop")
+    # wrapper runs the plain version for CPU tensors, with fused="on")
+    dev_route = reduced_solve_route(opt.pfdr, obs.is_cuda) == "kernel"
     if isinstance(op, RankShardedOp):  # sharded over ranks
         kind, op_arr = "dist", op
     elif isinstance(op, DenseOp):

@@ -134,6 +134,32 @@ def make_reduced_container(reu, rev, rla, rv_cap: int, dtype, device):
                                 dtype=dtype, device=device)
 
 
+def reduced_solve_route(pfdr_opt, on_cuda: bool) -> str:
+    """Where cut-pursuit solves its reduced problems: ``"kernel"`` (the
+    whole-solve kernels ``solve_small`` / ``solve_fused``; their plain
+    versions for CPU tensors) or ``"staged"`` (the PFDR loop).
+
+    The JAX package's rule: the kernel route needs ``fused != "off"``,
+    ``dif_rcd == 0`` and ``verbose == 0``, and tensors on the accelerator
+    or ``fused == "on"``.  With ``fused="auto"``, ``dif_rcd > 0`` or
+    ``verbose > 0`` take the staged loop; with ``fused="on"``, which asks
+    for the kernels, they raise ``NotImplementedError``.
+    """
+    if pfdr_opt.fused == "off" or not (on_cuda or pfdr_opt.fused == "on"):
+        return "staged"
+    for name in ("dif_rcd", "verbose"):
+        value = getattr(pfdr_opt, name)
+        if value and pfdr_opt.fused == "on":
+            raise NotImplementedError(
+                f"PFDROptions.{name}={value!r} is not supported by the "
+                f"whole-solve kernels that fused='on' asks for; pass "
+                f"fused='auto' or 'off' to solve the reduced problems in "
+                f"the staged loop")
+        if value:
+            return "staged"
+    return "kernel"
+
+
 def machine_eps(dtype, dif_tol: float) -> float:
     """Reference epsilon rule (``CP_PFDR_graph_quadratic_d1_l1.cpp:235-252``):
     the machine epsilon, or dif_tol when it is a smaller positive value."""

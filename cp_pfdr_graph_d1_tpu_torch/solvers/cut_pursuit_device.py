@@ -26,8 +26,9 @@ CP iteration.  Here the whole iteration stays on the tensors' device:
   (:func:`.cut_pursuit._kernel_solve`: ``solve_small`` when the problem
   fits one block's shared memory and has fewer than
   ``SOLVE_FUSED_MIN_RV_CAP`` vertices, ``solve_fused`` otherwise), or the staged
-  PFDR loop for CPU tensors with ``pfdr.fused="auto"`` and for
-  ``pfdr.fused="off"``;
+  PFDR loop for CPU tensors with ``pfdr.fused="auto"``, for
+  ``pfdr.fused="off"``, and with ``"auto"`` for ``pfdr.dif_rcd > 0`` or
+  ``pfdr.verbose > 0`` (:func:`.cut_pursuit_common.reduced_solve_route`);
 * merge and evolution tests: elementwise on the device.
 
 Host reads per iteration: the new-edge count, the certificates, the
@@ -61,7 +62,8 @@ from ..ops.power_iter import dense_operator_norm
 from ..stencil import StencilGraphD1
 from .cut_pursuit import (CPResult, CPState, _kernel_solve, _objective,
                           _reduce_dense, _reduce_diag, _reduce_gram)
-from .cut_pursuit_common import bucket, machine_eps, make_reduced_container
+from .cut_pursuit_common import (bucket, machine_eps, make_reduced_container,
+                                 reduced_solve_route)
 from .pfdr_quadratic import VertexProx, pfdr_quadratic_d1
 
 # above this component count the [V, rV] one-hot contractions give way to
@@ -379,16 +381,7 @@ def cp_quadratic_d1_device(op: QuadOp, obs, graph: GraphD1, *,
     dif_tol2 = opt.dif_tol * opt.dif_tol
     # reduced solves: one whole-solve kernel on a CUDA device (its plain
     # version on the CPU with fused="on"), the staged loop otherwise
-    kernel_route = (opt.pfdr.fused != "off"
-                    and (obs.is_cuda or opt.pfdr.fused == "on"))
-    if kernel_route:
-        for name, value in (("dif_rcd", opt.pfdr.dif_rcd),
-                            ("verbose", opt.pfdr.verbose)):
-            if value:
-                raise NotImplementedError(
-                    f"PFDROptions.{name}={value!r} is not supported by the "
-                    f"whole-solve kernels; pass PFDROptions(fused='off') to "
-                    f"solve the reduced problems in the staged loop")
+    kernel_route = reduced_solve_route(opt.pfdr, obs.is_cuda) == "kernel"
 
     if state is None:
         x1 = scalar_init(op, obs, num_v, la_l1_dev, has_l1, positivity,
