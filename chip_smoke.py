@@ -15,7 +15,9 @@ It imports nothing of JAX.  Phases, one or more lines each:
    float64 and float32, with the time per launch of both;
 4. ``solve_small`` against its plain version on reduced problems of that
    problem (its first steepest cut, about 2.6k components, and a 128-block
-   partition), for the dense, Gram and diagonal operators;
+   partition), for the dense, Gram and diagonal operators, on the
+   thread-block cluster the wrapper picks and on forced ones
+   (``SMALL_FORCED``: one block, 2, 4 and 8 CTAs);
 5. ``mincut_fused`` against its plain version at 140 x 140, 512 x 512
    and 724 x 724 (10 % of the edges masked, standard-normal costs),
    float64 and float32, on the schedule the kernel chooses and, in
@@ -23,13 +25,16 @@ It imports nothing of JAX.  Phases, one or more lines each:
    the streamed step's bound (over the L2 copy rate measured here);
 6. ``components_fused`` against its plain version at the same sizes, with
    10 % and 45 % of the edges masked;
-7. ``solve_fused`` against its plain version on the reduced problem the
-   host-cut main path gives it (the EEG problem's first steepest cut,
-   dense, rv_cap 4096) and on reduced problems beyond ``solve_small``: a
+7. ``solve_fused`` against its plain version on the EEG problem's first
+   steepest cut (dense, rv_cap 4096: ``solve_fused``'s shape below dense
+   rv_cap 8192, where the route sends ``solve_small``), on the call of
+   the ``pfdr-mesh-banded`` path, and on reduced problems beyond
+   ``solve_small``: a
    40,000-block partition of the 724 x 724 grid with the diagonal
    operator, and the EEG grid with every vertex its own component and the
    dense operator; then ``solve_small`` against ``solve_fused`` on the same
-   reduced problems (the crossover behind ``SOLVE_FUSED_MIN_RV_CAP``);
+   reduced problems, ``solve_small`` on every cluster size (the crossover
+   behind ``SOLVE_FUSED_MIN_RV_CAP`` and ``solve_small.cluster_size``);
 8. ``stencil_fused_simplex`` against its plain version at 140 x 140,
    F = 2, K = 4 for four losses (one iteration in float64 and float32, a
    400-iteration float64 loop of the solver's kernel loop), the kernel loop
@@ -47,14 +52,17 @@ It imports nothing of JAX.  Phases, one or more lines each:
    ``banded_fused``, ``circulant_fused`` (64 families and a banded
    remainder; and the 140 x 140 grid as a circulant container, no
    remainder) and ``circulant_fused_simplex`` (K = 4, four losses, and
-   400-iteration float64 loops) against their plain versions, float64 and
-   float32, with the time per call of both;
+   400-iteration float64 loops) against their plain versions, float64 and float32, with the time per
+   call of both;
 11. the main paths, each with the launch counters set to 0 just before it
    and read just after: ``pfdr_quadratic_d1`` on the EEG-scale stencil
    problem (3000 iterations in float32); ``api.cp_quadratic_d1_l1`` on it
    (host cut) in float32, held against the port's own float64 run on the
-   CPU; the same problem through ``cut="device"`` and the chained loop
-   (``bench.py``'s options), held against the same float64 run; and the
+   CPU (after the main paths, one more run outside their counted windows
+   prints each of its reduced solves: route, cluster, iterations, call
+   milliseconds); the same problem through ``cut="device"`` and the
+   chained loop (``bench.py``'s options), held against the same float64
+   run; and the
    524k-vertex TV denoising problem of ``bench.py`` through the
    per-iteration device loop, held against its own float64 run on the card;
    the multi-label PFDR of ``bench.py:bench_simplex`` (140 x 140, K = 4,
@@ -92,9 +100,10 @@ It imports nothing of JAX.  Phases, one or more lines each:
    window, and the P = 1 busy share is profiled after it.
 
 ``python3 chip_smoke.py --compare`` runs only ``compare_timings`` (the
-``mincut_fused`` steps and the banded per-call times), which an older
-checkout of the port can run with its own kernels when this script is
-copied into its root.
+``circulant_fused_simplex`` call and ``solve_small``'s 300 iterations on
+the main shapes, the ``mincut_fused`` steps and the banded per-call
+times), which an older checkout of the port can run with its own kernels
+when this script is copied into its root.
 
 The line before the last is the JSON kernel report; the last line is the
 JSON result.  Any failed check raises, and the script then exits with a
@@ -413,44 +422,62 @@ def solve_kw(dtype, rv):
     return kw
 
 
+# forced cluster sizes held against the plain version beside the chosen
+# one: (partition, kind, cluster); partition 0 is the first cut
+SMALL_FORCED = ((0, "dense", 1), (0, "dense", 4), (0, "dense", 8),
+                (1, "dense", 2), (1, "gram", 4))
+
+
 def phase_solve_small(device="cuda"):
+    """``solve_small`` against its plain version on the two partitions, for
+    the three operators, float64 (equal iteration counts, F64_TOL) and
+    float32 (300 iterations, F32_TOL), on the cluster the wrapper picks and
+    on the forced schedules of ``SMALL_FORCED``; float32 dense times per
+    300 iterations of both partitions."""
     import torch
     from cp_pfdr_graph_d1_tpu_torch.ops import solve_small as ss
     cv1, rg1, eu, ev, la = first_cut_partition()
-    cv2, rg2 = block_partition(eu, ev, la)
+    parts = ((cv1, rg1), block_partition(eu, ev, la))
     errs = {torch.float64: 0.0, torch.float32: 0.0}
     times = {}
+    runs = [(i, kind, None) for i in range(2)
+            for kind in ("dense", "gram", "diag")] + list(SMALL_FORCED)
     for dtype in (torch.float64, torch.float32):
-        for (cv, rg) in ((cv1, rg1), (cv2, rg2)):
-            for kind in ("dense", "gram", "diag"):
-                args, rv = small_inputs(kind, cv, rg, dtype, device)
-                kw = solve_kw(dtype, rv)
-                xk, zk, itk, _ = ss.fused_pfdr_solve_small(*args, **kw)
-                xp, zp, itp, _ = ss.solve_small_plain(*args, **kw)
-                err = max(max_err(xk, xp), max_err(zk, zp))
-                errs[dtype] = max(errs[dtype], err)
-                tol = F64_TOL if dtype == torch.float64 else F32_TOL
-                check(int(itk) == int(itp), f"solve_small {kind} rv={rv} "
-                      f"{dtype}: it {int(itk)} vs plain {int(itp)}")
-                check(err <= tol, f"solve_small {kind} rv={rv} {dtype}: "
-                      f"err {err:.3g} > {tol}")
-                line = (f"[solve_small] {str(dtype)[6:]} {kind:5s} rv={rv:5d}"
-                        f" rv_cap={args[5].shape[0]} e={args[8].shape[0]} "
-                        f"it={int(itk)} max|kernel-plain| = {err:.3e} "
-                        f"(tol {tol:g})")
-                if dtype == torch.float32 and kind == "dense" and \
-                        device == "cuda":
-                    ms = cuda_ms(lambda: ss.fused_pfdr_solve_small(
-                        *args, **kw), 5)
-                    plain_ms = cuda_ms(lambda: ss.solve_small_plain(
-                        *args, **kw), 2)
-                    times.setdefault("ms", {})[rv] = ms
-                    times.setdefault("plain_ms", {})[rv] = plain_ms
-                    times.setdefault("dims", {})[rv] = (
-                        args[5].shape[0], args[8].shape[0], args[1].shape[0])
-                    line += (f"; {kw['it_max']} iterations: kernel "
-                             f"{ms:.3f} ms, plain {plain_ms:.3f} ms")
-                print(line, flush=True)
+        for i, kind, cluster in runs:
+            cv, rg = parts[i]
+            args, rv = small_inputs(kind, cv, rg, dtype, device)
+            kw = solve_kw(dtype, rv)
+            xk, zk, itk, _ = ss._solve(cluster, *args, **kw)
+            xp, zp, itp, _ = ss.solve_small_plain(*args, **kw)
+            err = max(max_err(xk, xp), max_err(zk, zp))
+            errs[dtype] = max(errs[dtype], err)
+            tol = F64_TOL if dtype == torch.float64 else F32_TOL
+            rv_cap = args[5].shape[0]
+            n_rows = args[1].shape[0] if kind == "dense" else 0
+            c = cluster or ss.cluster_size(kind, rv_cap, n_rows, dtype)
+            name = f"solve_small {kind} rv={rv} {dtype} C={c}"
+            check(int(itk) == int(itp), f"{name}: it {int(itk)} vs plain "
+                  f"{int(itp)}")
+            check(err <= tol, f"{name}: err {err:.3g} > {tol}")
+            forced = "" if cluster is None else " (forced)"
+            line = (f"[solve_small] {str(dtype)[6:]} {kind:5s} rv={rv:5d}"
+                    f" rv_cap={rv_cap} e={args[8].shape[0]} C={c}{forced}"
+                    f" it={int(itk)} max|kernel-plain| = {err:.3e} "
+                    f"(tol {tol:g})")
+            if dtype == torch.float32 and kind == "dense" and \
+                    cluster is None and device == "cuda":
+                ms = cuda_ms(lambda: ss.fused_pfdr_solve_small(
+                    *args, **kw), 5)
+                plain_ms = cuda_ms(lambda: ss.solve_small_plain(
+                    *args, **kw), 2)
+                times.setdefault("ms", {})[rv] = ms
+                times.setdefault("plain_ms", {})[rv] = plain_ms
+                times.setdefault("cluster", {})[rv] = c
+                times.setdefault("dims", {})[rv] = (
+                    rv_cap, args[8].shape[0], args[1].shape[0])
+                line += (f"; {kw['it_max']} iterations: kernel "
+                         f"{ms:.3f} ms, plain {plain_ms:.3f} ms")
+            print(line, flush=True)
     return errs, times
 
 
@@ -537,16 +564,23 @@ def run_cp(graph, a, y, dtype, device, host_small="auto", verbose=0):
                         res.state)
 
 
-def phase_cp(device="cuda"):
+def eeg_host_cut(device="cuda"):
+    """``(graph, a, y)`` of the EEG problem's host cut in float32."""
     import torch
     from cp_pfdr_graph_d1_tpu_torch import StencilGraphD1
-    from cp_pfdr_graph_d1_tpu_torch.ops import solve_small as ss
     a, y = build_grid_problem()
     g = StencilGraphD1.create((V_SIDE, V_SIDE), {(0, 1): LA_D1, (1, 0): LA_D1},
                               dtype=torch.float32, device=device)
-    before = ss.fused_pfdr_solve_small.launches
+    return g, a, y
+
+
+def eeg_host_cut_runs(g, a, y, device="cuda"):
+    """One warm-up run of the EEG host cut (its progress lines give the
+    components per CP iteration), then two timed runs: returns ``(best
+    seconds, warm-up seconds, last output, components)``."""
+    import torch
     runs = []
-    for k in range(3):  # one warm-up (printing its progress), two timed
+    for k in range(3):
         torch.cuda.synchronize()
         buf = io.StringIO()
         t0 = time.perf_counter()
@@ -557,15 +591,23 @@ def phase_cp(device="cuda"):
             comps = [int(ln.split(":")[1].split()[0])
                      for ln in buf.getvalue().splitlines()
                      if ln.startswith("CP it")]
+    return min(t for t, _ in runs[1:]), runs[0][0], runs[-1][1], comps
+
+
+def phase_cp(device="cuda"):
+    import torch
+    from cp_pfdr_graph_d1_tpu_torch import StencilGraphD1
+    from cp_pfdr_graph_d1_tpu_torch.ops import solve_small as ss
+    g, a, y = eeg_host_cut(device)
+    before = ss.fused_pfdr_solve_small.launches
+    t_best, t_warm, out, comps = eeg_host_cut_runs(g, a, y, device)
     grew = ss.fused_pfdr_solve_small.launches - before
     check(grew > 0, "solve_small was not launched by the cut-pursuit run")
-    t_best = min(t for t, _ in runs[1:])
-    out = runs[-1][1]
     x = out.rX[out.Cv]
     check(np.all(np.isfinite(x)) and x.shape == (V_SIDE * V_SIDE,),
           "cut-pursuit result not finite or of the wrong shape")
     print(f"[cp] float32 on the card: min of two warm runs "
-          f"{t_best * 1e3:.1f} ms (warm-up {runs[0][0] * 1e3:.1f} ms); "
+          f"{t_best * 1e3:.1f} ms (warm-up {t_warm * 1e3:.1f} ms); "
           f"{out.it} CP iterations, {len(out.rX)} components, "
           f"solve_small launches +{grew}", flush=True)
     print(f"[cp] components per CP iteration: {comps}", flush=True)
@@ -587,6 +629,70 @@ def phase_cp(device="cuda"):
           f"card objective {f_gpu} worse than the CPU float64 run {f_ref} "
           f"by more than 1e-3 relative")
     return t_best, f_ref
+
+
+def eeg_reduced_solves(device="cuda"):
+    """One more run of the EEG host cut, outside the counted windows, with
+    each reduced solve recorded (:func:`record_reduced_solves`) and printed
+    with the cluster ``solve_small`` takes; returns the records."""
+    from cp_pfdr_graph_d1_tpu_torch.ops import solve_small as ss
+    g, a, y = eeg_host_cut(device)
+    _, rec = record_reduced_solves(
+        lambda: run_cp(g, a, y, np.float32, device))
+    for k, r in enumerate(rec):
+        r["cluster"] = (ss.cluster_size(r["kind"], r["rv_cap"], r["n_rows"],
+                                        r.pop("dtype"))
+                        if r["route"] == "solve_small" else None)
+        print(f"[cp] reduced solve {k}: rv={r['rv']} rv_cap={r['rv_cap']} "
+              f"e={r['e']} {r['kind']} {r['route']}"
+              f"{'' if r['cluster'] is None else ' C=' + str(r['cluster'])}"
+              f" it={r['it']} call {r['call_ms']:.3f} ms", flush=True)
+    print_route_totals("[cp]", rec)
+    return rec
+
+
+def print_route_totals(tag, rec):
+    for route in ("solve_small", "solve_fused"):
+        mine = [r for r in rec if r["route"] == route]
+        print(f"{tag} {route}: {len(mine)} launches, "
+              f"{sum(r['call_ms'] for r in mine):.3f} ms of calls in a run",
+              flush=True)
+
+
+def record_reduced_solves(run):
+    """``(run(), records)``: ``run`` with the cut-pursuit route's two
+    whole-solve wrappers wrapped, one record per reduced solve (kind, rv,
+    rv_cap, operator rows, dtype, edges, route, iterations, and the call's
+    milliseconds between CUDA events around the wrapper: its input
+    preparation, the launch and the output allocations)."""
+    import torch
+    from cp_pfdr_graph_d1_tpu_torch.solvers import cut_pursuit as cp
+    rec = []
+
+    def wrap(route, fn):
+        def call(*args, **kw):
+            start = torch.cuda.Event(enable_timing=True)
+            stop = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn(*args, **kw)
+            stop.record()
+            stop.synchronize()
+            kind, rv_cap = args[0], args[5].shape[0]
+            n_rows = args[1].shape[0] if kind == "dense" else 0
+            rec.append(dict(
+                kind=kind, rv=kw["rv"], rv_cap=rv_cap, n_rows=n_rows,
+                dtype=args[5].dtype, e=args[8].shape[0], route=route,
+                it=int(out[2]), call_ms=start.elapsed_time(stop)))
+            return out
+        return call
+
+    saved = cp.fused_pfdr_solve_small, cp.fused_pfdr_solve
+    cp.fused_pfdr_solve_small = wrap("solve_small", saved[0])
+    cp.fused_pfdr_solve = wrap("solve_fused", saved[1])
+    try:
+        return run(), rec
+    finally:
+        cp.fused_pfdr_solve_small, cp.fused_pfdr_solve = saved
 
 
 # ---------------------------------------------------------------------------
@@ -847,11 +953,11 @@ def reduced_inputs(kind, dtype, device):
 
 
 def phase_solve_fused(device="cuda"):
-    """``solve_fused`` against its plain version: first on the reduced
-    problem the host-cut main path gives it (the EEG problem's first
-    steepest cut, dense, rv_cap 4096, prepared as ``_kernel_solve``
-    prepares it, edges sorted), then on reduced problems that
-    ``solve_small`` cannot hold.  float64: the evolution test stops both,
+    """``solve_fused`` against its plain version: first on the EEG
+    problem's first steepest cut (dense, rv_cap 4096, prepared as
+    ``_kernel_solve`` prepares it for ``solve_fused``, edges sorted), then
+    on reduced problems that ``solve_small`` cannot hold, then on the
+    mesh call of the ``pfdr-mesh-banded`` path (float32 timed).  float64: the evolution test stops both,
     step counts equal, iterates to F64_TOL; float32: a fixed 300
     iterations, iterates to F32_TOL (the two differ in summation order
     only, carried through a nonexpansive iteration)."""
@@ -871,13 +977,13 @@ def phase_solve_fused(device="cuda"):
         errs[dtype] = max(errs[dtype], err)
         main["err_" + str(dtype)[6:]] = err
         tol = F64_TOL if dtype == torch.float64 else F32_TOL
-        check(int(itk) == int(itp), f"solve_fused main-path shape {dtype}: "
+        check(int(itk) == int(itp), f"solve_fused EEG dense shape {dtype}: "
               f"it {int(itk)} vs plain {int(itp)}")
-        check(err <= tol, f"solve_fused main-path shape {dtype}: err "
+        check(err <= tol, f"solve_fused EEG dense shape {dtype}: err "
               f"{err:.3g} > {tol}")
         line = (f"[solve_fused] {str(dtype)[6:]} dense rv={rv} rv_cap="
-                f"{args[5].shape[0]} e={args[8].shape[0]} (host-cut main "
-                f"path's first reduced problem) it={int(itk)} "
+                f"{args[5].shape[0]} e={args[8].shape[0]} (the EEG host "
+                f"cut's first reduced problem) it={int(itk)} "
                 f"max|kernel-plain| = {err:.3e} (tol {tol:g})")
         if dtype == torch.float32:
             ms = cuda_ms(lambda: sfu.fused_pfdr_solve(*args, **kw), 5)
@@ -930,10 +1036,17 @@ def phase_solve_fused(device="cuda"):
         check(int(itk) == int(itp), f"solve_fused mesh {dtype}: it "
               f"{int(itk)} vs plain {int(itp)}")
         check(err <= tol, f"solve_fused mesh {dtype}: err {err:.3g}")
-        print(f"[solve_fused] {name} mesh BandedGraphD1 (the pfdr-mesh-banded "
-              f"path's call) rv={kw['rv']} e={args[8].shape[0]} it="
-              f"{int(itk)} (plain {int(itp)}) max|kernel-plain| = "
-              f"{err:.3e} (tol {tol:g})", flush=True)
+        line = (f"[solve_fused] {name} mesh BandedGraphD1 (the "
+                f"pfdr-mesh-banded path's call) rv={kw['rv']} "
+                f"e={args[8].shape[0]} it={int(itk)} (plain {int(itp)}) "
+                f"max|kernel-plain| = {err:.3e} (tol {tol:g})")
+        if not f64 and device == "cuda":
+            ms = cuda_ms(lambda: sfu.fused_pfdr_solve(*args, **kw), 3)
+            plain_ms = cuda_ms(lambda: sfu.solve_fused_plain(*args, **kw), 1)
+            main.update(mesh_ms=ms, mesh_plain_ms=plain_ms, mesh_args=args)
+            line += (f"; 300 iterations: kernel {ms:.3f} ms, plain "
+                     f"{plain_ms:.1f} ms")
+        print(line, flush=True)
     return errs, main
 
 
@@ -962,26 +1075,42 @@ def mesh_whole_inputs(dtype, device, dif_tol, it_max):
 
 
 def crossover(device="cuda"):
-    """solve_small (one block) against solve_fused (the whole card) on the
-    same reduced problems of the EEG host route, float32, 300 iterations:
-    the measurement behind ``SOLVE_FUSED_MIN_RV_CAP`` in
-    ``solvers/cut_pursuit.py``."""
+    """solve_small on each cluster size it takes (C = 1: one block; the
+    cluster the wrapper picks starred) against solve_fused (the whole card) on the same reduced
+    problems of the EEG host route, float32, 300 iterations: the
+    measurement behind ``SOLVE_FUSED_MIN_RV_CAP`` in
+    ``solvers/cut_pursuit.py`` and ``cluster_size`` in
+    ``ops/solve_small.py``.  Returns ``{(kind, rv_cap): {C: ms}}``."""
     import torch
     from cp_pfdr_graph_d1_tpu_torch.ops import solve_fused as sfu
     from cp_pfdr_graph_d1_tpu_torch.ops import solve_small as ss
     cv1, rg1, eu, ev, la = first_cut_partition()
+    table = {}
     for cv, rg in ((cv1, rg1), block_partition(eu, ev, la, 8, 16),
+                   block_partition(eu, ev, la, 16, 16),
                    block_partition(eu, ev, la, 16, 32),
                    block_partition(eu, ev, la, 32, 32),
                    block_partition(eu, ev, la, 32, 64)):
-        for kind in ("dense", "diag"):
+        for kind in ("dense", "gram", "diag"):
             args, rv = small_inputs(kind, cv, rg, torch.float32, device)
+            rv_cap = args[5].shape[0]
+            if kind == "gram" and rv_cap > 512:
+                continue  # the route premultiplies below ~2 N components
             kw = solve_kw(torch.float32, rv)
-            t_s = cuda_ms(lambda: ss.fused_pfdr_solve_small(*args, **kw), 3)
+            n_rows = args[1].shape[0] if kind == "dense" else 0
+            pick = ss.cluster_size(kind, rv_cap, n_rows, torch.float32)
+            row = {}
+            for c in ss.CLUSTER_SIZES if kind != "diag" else (1,):
+                if c <= rv_cap:
+                    row[c] = cuda_ms(lambda: ss._solve(c, *args, **kw), 3)
             t_f = cuda_ms(lambda: sfu.fused_pfdr_solve(*args, **kw), 3)
-            print(f"[crossover] {kind:5s} rv={rv} rv_cap={args[5].shape[0]}"
-                  f": solve_small {t_s:.3f} ms, solve_fused {t_f:.3f} ms "
-                  f"per 300 iterations", flush=True)
+            table[(kind, rv_cap)] = dict(row, solve_fused=t_f)
+            cells = ", ".join(f"C={c}{'*' if c == pick else ''} {t:.3f}"
+                              for c, t in row.items())
+            print(f"[crossover] {kind:5s} rv={rv} rv_cap={rv_cap}: "
+                  f"solve_small {cells}; solve_fused {t_f:.3f} ms per 300 "
+                  f"iterations", flush=True)
+    return table
 
 
 def denoise_problem():
@@ -3395,7 +3524,7 @@ def main():
     mc_err, mc_t = phase_mincut()
     cc_t = phase_components()
     sf_err, sfm = phase_solve_fused()
-    crossover()
+    xover = crossover()
     sx_err, sx_t = phase_stencil_simplex()
     cps_cut, cps_comp = phase_cp_simplex_kernels()
     bt = phase_banded_transfers()
@@ -3420,7 +3549,7 @@ def main():
     # just after; each must have launched the kernels it runs
     launches = dict.fromkeys(counters(), 0)
     paths = (("pfdr", phase_pfdr, (), ("stencil_fused",)),
-             ("cp-host", phase_cp, (), ("solve_small", "solve_fused")),
+             ("cp-host", phase_cp, (), ("solve_small",)),
              ("cp-chain", phase_cp_chain, None,
               ("mincut_fused", "components_fused", "stencil_fused",
                "solve_small")),
@@ -3455,6 +3584,7 @@ def main():
             launches[k] += v
     check(all(v > 0 for v in launches.values()),
           f"a kernel was launched on no main path: {launches}")
+    cp_rec = eeg_reduced_solves()
     phase_cp_reduced_options(f_ref)
     phase_profile()
     profile_mesh()
@@ -3476,9 +3606,9 @@ def main():
                                               + 4 * f2 * v5 + 3 * v5)),
         "components_fused": (f2 * v5 + 4 * v5,
                              cc["rounds"] * (4 * f2 + 4) * v5),
-        "solve_fused": reduced_solve_work(sfm["args"][5].shape[0],
-                                          sfm["args"][8].shape[0],
-                                          sfm["args"][1].shape[0], 300),
+        "solve_fused": reduced_solve_work(sfm["mesh_args"][5].shape[0],
+                                          sfm["mesh_args"][8].shape[0],
+                                          sfm["mesh_args"][1].shape[0], 300),
         # inputs p, q, ga, ga_proj, prev (K planes), la_f, 7 F K edge
         # planes; outputs p, prev, zu, zv.  Operations per (vertex, label):
         # 1 + 2F forward values (~6), 2F pair proxes (~16) and weighted
@@ -3533,6 +3663,17 @@ def main():
              replaces="solve_small.py:185", max_abs_err=ss_err[
                  torch.float32], max_abs_err_f64=ss_err[torch.float64],
              ms=ss_t["ms"][rv_big], plain_ms=ss_t["plain_ms"][rv_big],
+             cluster=ss_t["cluster"][rv_big],
+             partitions={str(rv): dict(ms=ss_t["ms"][rv],
+                                       plain_ms=ss_t["plain_ms"][rv],
+                                       cluster=ss_t["cluster"][rv])
+                         for rv in ss_t["ms"]},
+             eeg_host_cut=[{k: r[k] for k in ("kind", "rv", "rv_cap", "route",
+                                              "cluster", "it", "call_ms")}
+                           for r in cp_rec],
+             crossover={f"{kind} rv_cap={rc}": {str(c): t
+                                                for c, t in row.items()}
+                        for (kind, rc), row in xover.items()},
              shape=f"dense, rv={rv_big} rv_cap={rv_cap}, 300 iterations"),
         dict(name="mincut_fused", source="mincut_fused.cu",
              replaces="mincut_fused.py:121",
@@ -3557,16 +3698,20 @@ def main():
         dict(name="solve_fused", source="solve_fused.cu",
              replaces="solve_fused.py:300", max_abs_err=sf_err[
                  torch.float32], max_abs_err_f64=sf_err[torch.float64],
-             main_path_max_abs_err=sfm["err_float32"],
-             main_path_max_abs_err_f64=sfm["err_float64"],
+             eeg_dense_max_abs_err=sfm["err_float32"],
+             eeg_dense_max_abs_err_f64=sfm["err_float64"],
              mesh_max_abs_err=sfm["mesh_err_float32"],
              mesh_max_abs_err_f64=sfm["mesh_err_float64"],
              mesh_iterations_f64=sfm["mesh_it_float64"],
-             ms=sfm["ms"], plain_ms=sfm["plain_ms"],
-             shape=f"dense, rv={sfm['rv']} "
-                   f"rv_cap={sfm['args'][5].shape[0]} "
-                   f"e={sfm['args'][8].shape[0]} (the host-cut path's first "
-                   f"reduced problem), 300 iterations"),
+             ms=sfm["mesh_ms"], plain_ms=sfm["mesh_plain_ms"],
+             eeg_dense_ms=sfm["ms"], eeg_dense_plain_ms=sfm["plain_ms"],
+             shape=f"mesh BandedGraphD1, V={sfm['mesh_args'][5].shape[0]} "
+                   f"e={sfm['mesh_args'][8].shape[0]} N="
+                   f"{sfm['mesh_args'][1].shape[0]} (the pfdr-mesh-banded "
+                   f"path's call), 300 iterations; eeg_dense_ms: dense, "
+                   f"rv={sfm['rv']} rv_cap={sfm['args'][5].shape[0]} (the "
+                   f"EEG host cut's first reduced problem, which the route "
+                   f"now sends to solve_small)"),
         dict(name="stencil_fused_simplex", source="stencil_fused_simplex.cu",
              replaces="stencil_fused_simplex.py:111",
              max_abs_err=sx_err[torch.float32],
@@ -3668,7 +3813,13 @@ def compare_timings(device="cuda"):
     """``python3 chip_smoke.py --compare``: timings that another checkout of
     the port can run with its own kernels (copy this script into its root
     and run it there), so that two versions are compared on one card in
-    one call: ``mincut_fused`` microseconds per step at 140 x 140,
+    one call: ``circulant_fused_simplex`` per call on the mesh (K = 4,
+    al = 1, float32; CUDA events over 200 calls, and device time),
+    ``solve_small`` per 300 float32 iterations on phase_solve_small's two
+    partitions (dense; the schedule the wrapper takes; 20 solves), the EEG
+    host cut end to end (min of two warm runs, as ``[cp]``) with its
+    reduced solves' calls summed by route (one more run), ``mincut_fused``
+    microseconds per step at 140 x 140,
     512 x 512 and 724 x 724 in float64 and float32 (the schedule the
     kernel takes; phase_mincut's cuts), and ``banded_gather`` /
     ``banded_scatter`` per call on the mesh's float32 [V] field beside
@@ -3679,7 +3830,33 @@ def compare_timings(device="cuda"):
     phase_build()
     import torch
     from cp_pfdr_graph_d1_tpu_torch.ops import banded
+    from cp_pfdr_graph_d1_tpu_torch.ops import circulant_fused_simplex as cfs
     from cp_pfdr_graph_d1_tpu_torch.ops import mincut_fused as mf
+    from cp_pfdr_graph_d1_tpu_torch.ops import solve_small as ss
+    args, kw = mesh_simplex_planes(torch.float32, device, 1.0, None, False)
+    step = lambda: cfs.fused_circulant_simplex_iteration(*args, **kw)  # noqa
+    print(f"[compare] circulant_fused_simplex float32 mesh K={K_SIMPLEX} "
+          f"al=1: {cuda_ms(step, 200) * 1e3:.2f} us per call, "
+          f"{device_profile(step, 200)[0]:.2f} us of device time",
+          flush=True)
+    cv1, rg1, eu, ev, la = first_cut_partition()
+    for cv, rg in ((cv1, rg1), block_partition(eu, ev, la)):
+        args, rv = small_inputs("dense", cv, rg, torch.float32, device)
+        kw = solve_kw(torch.float32, rv)
+        ms = cuda_ms(lambda: ss.fused_pfdr_solve_small(*args, **kw), 20)
+        print(f"[compare] solve_small float32 dense rv={rv} rv_cap="
+              f"{args[5].shape[0]}: {ms:.3f} ms per 300 iterations",
+              flush=True)
+    g, a, y = eeg_host_cut(device)
+    t_best, t_warm, out, _ = eeg_host_cut_runs(g, a, y, device)
+    _, rec = record_reduced_solves(
+        lambda: run_cp(g, a, y, np.float32, device))
+    print(f"[compare] EEG host cut float32: min of two warm runs "
+          f"{t_best * 1e3:.1f} ms (warm-up {t_warm * 1e3:.1f} ms), "
+          f"{out.it} CP iterations, {len(out.rX)} components, objective "
+          f"{objective(out.rX[out.Cv], a, y, *g.host_coo()):.7g}",
+          flush=True)
+    print_route_totals("[compare]", rec)
     for side in MINCUT_SIDES:
         for dtype in (torch.float64, torch.float32):
             g, active, r = masked_stencil(side, dtype, device, 0.1, 0)

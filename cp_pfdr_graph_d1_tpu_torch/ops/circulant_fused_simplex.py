@@ -9,6 +9,9 @@ simplex projection in the metric and the stopping sum, in one launch.  The
 planes are ``[K, V]`` for vertex fields and ``[K, E]`` for edge fields over
 the container's edge order (the transposes of the solver's ``[V, K]`` and
 ``[E, K]`` rows), where the TPU kernel holds ``[F, K, VV8, 128]`` blocks.
+As in the TPU kernel, the CUDA kernel derives ``w_d1v = 1 - w_d1u`` and
+``wv`` from ``wu``, ``w_d1u`` and the endpoints' Gamma (the identity the
+preconditioner satisfies up to rounding); the plain version reads them.
 
 :func:`fused_circulant_simplex_iteration` launches the CUDA kernel for
 tensors on a CUDA device and runs :func:`circulant_simplex_plain` for
@@ -32,6 +35,9 @@ MAX_LABELS = 32
 
 _FIELDS = ("p", "q", "la_f", "ga", "ga_proj", "prev", "zu", "zv", "wu", "wv",
            "w_d1u", "w_d1v", "th_d1")
+# the planes the kernel reads: wv and w_d1v follow from the others
+_KERNEL_FIELDS = tuple(i for i, n in enumerate(_FIELDS)
+                       if n not in ("wv", "w_d1v"))
 
 
 def circulant_simplex_plain(graph, p, q, la_f, ga, ga_proj, prev, zu, zv,
@@ -63,7 +69,7 @@ def _lib():
         for name in ("cp_circulant_simplex_f32", "cp_circulant_simplex_f64"):
             fn = getattr(lib, name)
             fn.restype = i
-            fn.argtypes = ([ptr] * 19 + [i] + [ptr] * 7
+            fn.argtypes = ([ptr] * 17 + [i] + [ptr] * 8
                            + [i, i, i, i, i, d, d, i, i, ptr])
         lib.cp_circulant_simplex_partials_len.restype = i
         lib.cp_circulant_simplex_partials_len.argtypes = [i, i]
@@ -138,20 +144,20 @@ def fused_circulant_simplex_iteration(graph, p, q, la_f, ga, ga_proj, prev,
     zuo = torch.empty_like(zu)
     zvo = torch.empty_like(zv)
     rem, ner, n_long = remainder_index(graph)
-    partials = p.new_empty(lib.cp_circulant_simplex_partials_len(vv, n_long))
+    partials = p.new_empty(lib.cp_circulant_simplex_partials_len(vv, nf))
     dif = p.new_empty(())
-    # family sums of the vertices whose remainder rows the long-row launch
-    # ends
+    # remainder-row sums of the vertices of long remainder rows
     acc_part = p.new_empty((k, nv)) if n_long else None
+    fp = p.new_empty((k, vv))  # forward values
     fn = (lib.cp_circulant_simplex_f32 if p.dtype == torch.float32
           else lib.cp_circulant_simplex_f64)
     with torch.cuda.device(p.device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = fn(*[a.data_ptr() for a in arrays],
+        rc = fn(*[arrays[i].data_ptr() for i in _KERNEL_FIELDS],
                 graph.offsets_dev.data_ptr(), *rem, n_long,
                 po.data_ptr(), prevo.data_ptr(), zuo.data_ptr(),
                 zvo.data_ptr(), acc_part.data_ptr() if n_long else 0,
-                partials.data_ptr(), dif.data_ptr(), nv, vv,
+                fp.data_ptr(), partials.data_ptr(), dif.data_ptr(), nv, vv,
                 nf, ner, k, float(rho), float(al), int(has_laf),
                 int(label_mode), stream)
     if rc != 0:

@@ -163,13 +163,22 @@ def _reduce_operator(kind: str, op_arr, obs, cv, rv_cap: int, pre_at: bool):
     return DiagOp(mat), mat, ry, lipsch
 
 
-# from this many reduced vertices on, solve_fused (every SM of the card)
-# beats solve_small (one block) on an NVIDIA H100 80GB HBM3 at 700 W: per
-# 300 float32 iterations of the EEG problem's first reduced problem
-# (rv_cap 4096), 5.806 against 13.777 ms with the dense operator and 3.205
-# against 4.777 ms with the diagonal one; at rv_cap 1024 and below
-# solve_small wins (chip_smoke.py's crossover lines, PERF.md)
-SOLVE_FUSED_MIN_RV_CAP = 4096
+# from this many reduced vertices on, by operator kind, solve_fused (every
+# SM of the card) takes the reduced solves (chip_smoke.py's crossover
+# lines, PERF.md).  On an NVIDIA H100 80GB HBM3 at 700 W, per 300 float32
+# iterations of the EEG problem's first reduced problem (rv_cap 4096),
+# solve_small on a cluster of 16 CTAs beats solve_fused on the dense
+# operator (3.471 against 5.699 ms); the diagonal one runs in one block and
+# loses (4.960 against 3.199).  Dense rv_cap 8192 and Gram operators from
+# rv_cap 1024 on were not measured, so they keep solve_fused
+SOLVE_FUSED_MIN_RV_CAP = {"dense": 8192, "gram": 4096, "diag": 4096}
+
+
+def _op_kind(r_op: QuadOp) -> str:
+    """The whole-solve kernels' name of a reduced operator's kind."""
+    if isinstance(r_op, DenseOp):
+        return "dense"
+    return "diag" if isinstance(r_op, DiagOp) else "gram"
 
 
 def kernel_solve_inputs(r_op: QuadOp, mat, ry, lipsch, rgraph: GraphD1,
@@ -184,12 +193,8 @@ def kernel_solve_inputs(r_op: QuadOp, mat, ry, lipsch, rgraph: GraphD1,
     included)."""
     pre = initial_precondition(r_op, ry, rgraph, r_la_l1, rho, lipsch,
                                Lipsch.DIAG)
-    if isinstance(r_op, DenseOp):
-        op_kind, aty = "dense", r_op.apply_t(ry)
-    elif isinstance(r_op, DiagOp):
-        op_kind, aty = "diag", ry
-    else:
-        op_kind, aty = "gram", ry
+    op_kind = _op_kind(r_op)
+    aty = r_op.apply_t(ry) if op_kind == "dense" else ry
     eu, ev = rgraph.eu, rgraph.ev
     ec = torch.stack([pre.wu, pre.wv, pre.w_d1u, pre.w_d1v, pre.th_d1])
     if sort_edges:
@@ -206,8 +211,8 @@ def kernel_solve_inputs(r_op: QuadOp, mat, ry, lipsch, rgraph: GraphD1,
 
 
 def fits_small(r_op: QuadOp, mat, rv_cap: int) -> bool:
-    """Whether the reduced problem fits one block's shared memory
-    (:func:`..ops.solve_small.fits`)."""
+    """Whether the reduced problem fits the solve_small kernel (its
+    one-block limit, :func:`..ops.solve_small.fits`)."""
     n_rows = mat.shape[0] if isinstance(r_op, DenseOp) else 0
     return fits(rv_cap, n_rows, mat.dtype)
 
@@ -217,8 +222,9 @@ def _kernel_solve(r_op: QuadOp, mat, ry, lipsch, rgraph: GraphD1, r_la_l1,
                   dif_tol: float):
     """Whole reduced PFDR solve in one kernel launch
     (:func:`kernel_solve_inputs`): :mod:`..ops.solve_small` when the
-    problem fits one block (:func:`fits_small`) and has fewer than
-    ``SOLVE_FUSED_MIN_RV_CAP`` vertices, else :mod:`..ops.solve_fused`.
+    problem fits it (:func:`fits_small`) and has fewer vertices than
+    ``SOLVE_FUSED_MIN_RV_CAP`` gives for its operator's kind, else
+    :mod:`..ops.solve_fused`.
     The two compute the same function, so the choice changes speed, not
     the result beyond float rounding.  CPU tensors run the kernels' plain
     versions.
@@ -234,7 +240,7 @@ def _kernel_solve(r_op: QuadOp, mat, ry, lipsch, rgraph: GraphD1, r_la_l1,
     Returns:
       ``(x [rv_cap], it)`` with ``it`` a 0-d int32 tensor.
     """
-    small = (rgraph.num_vertices < SOLVE_FUSED_MIN_RV_CAP
+    small = (rgraph.num_vertices < SOLVE_FUSED_MIN_RV_CAP[_op_kind(r_op)]
              and fits_small(r_op, mat, rgraph.num_vertices))
     args, kw = kernel_solve_inputs(r_op, mat, ry, lipsch, rgraph, r_la_l1,
                                    x0, rv, vprox=vprox, rho=rho,

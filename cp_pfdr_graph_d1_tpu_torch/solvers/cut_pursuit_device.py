@@ -24,8 +24,9 @@ CP iteration.  Here the whole iteration stays on the tensors' device:
 * reduced operator and solve: one-hot products up to ``_ONEHOT_MAX``
   components and sorted segment sums beyond, then one whole-solve kernel
   (:func:`.cut_pursuit._kernel_solve`: ``solve_small`` when the problem
-  fits one block's shared memory and has fewer than
-  ``SOLVE_FUSED_MIN_RV_CAP`` vertices, ``solve_fused`` otherwise), or the staged
+  fits its shared memory and has fewer vertices than
+  ``SOLVE_FUSED_MIN_RV_CAP`` gives for the operator's kind, ``solve_fused``
+  otherwise), or the staged
   PFDR loop for CPU tensors with ``pfdr.fused="auto"``, for
   ``pfdr.fused="off"``, and with ``"auto"`` for ``pfdr.dif_rcd > 0`` or
   ``pfdr.verbose > 0`` (:func:`.cut_pursuit_common.reduced_solve_route`);

@@ -258,3 +258,37 @@ def test_jax_state_resumes_in_port():
     assert res.it == int(full.it) == 120
     np.testing.assert_allclose(res.p.numpy(), np.asarray(full.p), rtol=0,
                                atol=1e-9)
+
+
+@pytest.mark.parametrize("al,with_laf", [(0.0, False), (1.0, False),
+                                         (0.5, False), (0.5, True)],
+                         ids=["linear", "quadratic", "kl", "kl-la_f"])
+def test_kernel_derived_weights_match_preconditioner(al, with_laf):
+    """The CUDA kernel derives ``w_d1v = 1 - w_d1u`` and ``wv = wu (w_d1v /
+    safe_u) (Gamma_v / safe_Gamma_u)`` (0 where Gamma_u = 0), as the TPU
+    kernel does, instead of reading them: on the test mesh's circulant
+    container (virtual slots included, and a vertex whose edges all have
+    weight 0, so Gamma = 0 there under the linear loss) the identity holds
+    for the preconditioner's outputs to 1e-14 relative in float64."""
+    from cp_pfdr_graph_d1_tpu_torch.solvers import pfdr_simplex as tps
+    eu, ev, la, q = mesh_problem(seed=1)
+    la = la.copy()
+    la[(eu == 0) | (ev == 0)] = 0.0  # vertex 0 keeps no weighted edge
+    g = T.CirculantGraphD1.create(eu, ev, la, num_vertices=V,
+                                  dtype=torch.float64, device="cpu",
+                                  **CIRC_KW)
+    qt = torch.from_numpy(q)
+    la_f = (torch.from_numpy(np.random.default_rng(5).uniform(0.5, 2.0, V))
+            if with_laf else None)
+    p = torch.from_numpy(np.random.default_rng(6).dirichlet(np.ones(4), V))
+    pre = tps.initial_precondition_simplex(al, la_f, g, qt, p, 1.5)
+    if al == 0.0:
+        assert bool((pre.ga[0] == 0).all())
+    gau, gav = g.gather_endpoints(pre.ga)
+    w_d1u = pre.w_d1u
+    safe_u = torch.where(w_d1u > 0, w_d1u, 1.0)
+    safe_g = torch.where(gau > 0, gau, 1.0)
+    wv = pre.wu * ((1.0 - w_d1u) / safe_u) * torch.where(gau > 0,
+                                                         gav / safe_g, 0.0)
+    torch.testing.assert_close(wv, pre.wv, rtol=1e-14, atol=0)
+    torch.testing.assert_close(1.0 - w_d1u, pre.w_d1v, rtol=1e-14, atol=0)

@@ -249,7 +249,8 @@ def test_chain_cap_follows_solve_small_fit(monkeypatch):
 
     res_s, f_s, caps_s = solve()
     assert set(caps_s[:-1]) == {300} and caps_s[-1] == 4000
-    monkeypatch.setattr(tcp, "SOLVE_FUSED_MIN_RV_CAP", 1)
+    monkeypatch.setattr(tcp, "SOLVE_FUSED_MIN_RV_CAP",
+                        dict.fromkeys(tcp.SOLVE_FUSED_MIN_RV_CAP, 1))
     res_f, f_f, caps_f = solve()
     assert caps_f == caps_s and res_f.it == res_s.it
     assert abs(f_f - f_s) <= 1e-9 * abs(f_s)

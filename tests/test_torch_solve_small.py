@@ -229,3 +229,71 @@ def test_endpoints_out_of_range_raise():
         solve_small.fused_pfdr_solve_small(
             *args, rv=128, it_max=5, rho=1.4, vkind="none", positivity=False,
             lo=-np.inf, hi=np.inf, dif_tol2=0.0, eps=1e-16)
+
+
+KINDS_ROWS = (("dense", 91), ("dense", 24), ("gram", 0), ("diag", 0))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
+                         ids=["f32", "f64"])
+@pytest.mark.parametrize("kind,n_rows", KINDS_ROWS,
+                         ids=[f"{k}{n}" for k, n in KINDS_ROWS])
+def test_cluster_choice_agrees_with_smem_bytes(kind, n_rows, dtype):
+    """For every cluster size and rv_cap, :func:`launch_shape` counts the
+    bytes :func:`smem_bytes` gives for its schedule, holds the operator in
+    shared memory exactly when that fits, and refuses a cluster for the
+    diagonal operator; the cluster :func:`cluster_size` picks fits
+    whenever :func:`fits` says the problem does."""
+    ss = solve_small
+    item = torch.empty(0, dtype=dtype).element_size()
+    n_op = ss.op_rows(kind, 1, n_rows) if kind != "gram" else None
+    for rv_cap in (128, 256, 512, 1024, 2048, 4096, 8192, 16384):
+        n = n_op if n_op is not None else rv_cap
+        for c in ss.CLUSTER_SIZES:
+            if kind == "diag" and c > 1:
+                with pytest.raises(ValueError, match="one block for 'diag'"):
+                    ss.launch_shape(kind, rv_cap, n_rows, dtype, cluster=c)
+                continue
+            got_c, in_smem, nbytes = ss.launch_shape(kind, rv_cap, n_rows,
+                                                     dtype, cluster=c)
+            assert got_c == c
+            if c == 1:
+                assert not in_smem
+                assert nbytes == ss.smem_bytes(
+                    rv_cap, n_rows if kind == "dense" else 0, item)
+                continue
+            with_op = ss.smem_bytes(rv_cap, n_rows, item, c, n_op=n,
+                                    op_in_smem=True)
+            assert in_smem == (with_op <= ss.MAX_SMEM_BYTES)
+            assert nbytes == ss.smem_bytes(rv_cap, n_rows, item, c, n_op=n,
+                                           op_in_smem=in_smem)
+        c, _, nbytes = ss.launch_shape(kind, rv_cap, n_rows, dtype)
+        assert c == ss.cluster_size(kind, rv_cap, n_rows, dtype)
+        assert c in ss.CLUSTER_SIZES and c <= rv_cap
+        if ss.fits(rv_cap, n_rows if kind == "dense" else 0, dtype):
+            assert nbytes <= ss.MAX_SMEM_BYTES
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
+                         ids=["f32", "f64"])
+def test_route_sends_only_problems_that_fit(dtype):
+    """Every reduced problem ``_kernel_solve`` sends to ``solve_small``
+    (rv_cap a power of two from 128 below ``SOLVE_FUSED_MIN_RV_CAP`` of its
+    operator's kind; the dense operator of up to 256 rows, or the Gram or
+    diagonal one) fits the kernel on the cluster the wrapper picks; the
+    smallest problems run in one block, and the EEG problem's largest dense
+    ones on a cluster."""
+    ss = solve_small
+    for kind, n_rows in (("dense", 1), ("dense", 91), ("dense", 256),
+                         ("gram", 0), ("diag", 0)):
+        rv_cap = 128
+        while rv_cap < tcp.SOLVE_FUSED_MIN_RV_CAP[kind]:
+            assert ss.fits(rv_cap, n_rows, dtype)
+            _, _, nbytes = ss.launch_shape(kind, rv_cap, n_rows, dtype)
+            assert nbytes <= ss.MAX_SMEM_BYTES
+            rv_cap *= 2
+    for kind, n_rows in (("dense", 91), ("gram", 0), ("diag", 0)):
+        assert ss.cluster_size(kind, 128, n_rows, dtype) == 1
+    assert ss.cluster_size("diag", 2048, 0, dtype) == 1
+    assert ss.cluster_size("dense", 2048, 91, dtype) > 1
+    assert ss.cluster_size("dense", 4096, 91, dtype) > 1
