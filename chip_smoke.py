@@ -100,10 +100,11 @@ It imports nothing of JAX.  Phases, one or more lines each:
    window, and the P = 1 busy share is profiled after it.
 
 ``python3 chip_smoke.py --compare`` runs only ``compare_timings`` (the
-``circulant_fused_simplex`` call and ``solve_small``'s 300 iterations on
-the main shapes, the ``mincut_fused`` steps and the banded per-call
-times), which an older checkout of the port can run with its own kernels
-when this script is copied into its root.
+``circulant_fused_simplex``, ``circulant_fused`` and ``banded_fused``
+calls and the two quadratic mesh solves' iterations, ``solve_small``'s 300
+iterations on the main shapes, the EEG host cut, the ``mincut_fused``
+steps and the banded per-call times), which an older checkout of the port
+can run with its own kernels when this script is copied into its root.
 
 The line before the last is the JSON kernel report; the last line is the
 JSON result.  Any failed check raises, and the script then exits with a
@@ -2078,8 +2079,9 @@ def check_stage(name, kern, plain, args, dtype, device):
     """A quadratic stage kernel against its plain version for the four
     vertex proxes: x and the sums everywhere, zu and zv on the real slots
     (the z values of a circulant container's virtual slots depend on the
-    path and are never consumed).  Returns the largest absolute error of
-    the fields."""
+    path and are never consumed), and a second call on the same inputs
+    bit-equal to the first (the sums do not depend on the blocks' order).
+    Returns the largest absolute error of the fields."""
     import torch
     real = args[0].la_d1 != 0
     tol = F64_TOL if dtype == torch.float64 else F32_TOL
@@ -2091,6 +2093,9 @@ def check_stage(name, kern, plain, args, dtype, device):
         out_p = plain(*args, **kw)
         if device == "cuda":
             check(out_k[0].is_cuda, f"{name}: kernel output not on the card")
+        again = kern(*args, **kw)
+        check(all(bool(torch.equal(a, b)) for a, b in zip(out_k, again)),
+              f"{name} {dtype}: two calls on the same inputs differ")
         err = max(max_err(out_k[0], out_p[0]),
                   max_err(out_k[1][real], out_p[1][real]),
                   max_err(out_k[2][real], out_p[2][real]))
@@ -2102,7 +2107,8 @@ def check_stage(name, kern, plain, args, dtype, device):
               f"err {err:.3g}, sums rel err {rel:.3g} (tol {tol})")
         print(f"[{name}] {str(dtype)[6:]} {vp.kind:6s} pos="
               f"{int(vp.positivity)} x/zu/zv max|kernel-plain| = {err:.3e},"
-              f" num/den rel err {rel:.3e} (tol {tol:g})", flush=True)
+              f" num/den rel err {rel:.3e} (tol {tol:g}); a second call "
+              f"bit-equal", flush=True)
     return worst
 
 
@@ -2281,7 +2287,8 @@ def phase_banded_transfers(device="cuda"):
 def phase_banded_fused(device="cuda"):
     """``banded_fused`` against its plain version on the mesh's banded
     container, one stage from a random state, for the four vertex proxes,
-    float64 and float32; float32 times per call."""
+    float64 and float32; float32 times per call (CUDA events, device time,
+    host time)."""
     import torch
     from cp_pfdr_graph_d1_tpu_torch.ops import banded_fused as bf
     _, _, a, y = build_mesh_problem()
@@ -2294,15 +2301,17 @@ def phase_banded_fused(device="cuda"):
         if dtype == torch.float32 and device == "cuda":
             kw = dict(rho=1.5, vkind="l1", positivity=True, lo=-np.inf,
                       hi=np.inf)
-            times = time_pair(
-                lambda: bf.fused_banded_iteration(*args, **kw),
-                lambda: bf.banded_fused_plain(*args, **kw))
-            times["e"] = args[0].num_edges
+            step = lambda: bf.fused_banded_iteration(*args, **kw)  # noqa
+            times = time_pair(step,
+                              lambda: bf.banded_fused_plain(*args, **kw))
+            times.update(e=args[0].num_edges, host_us=host_us(step))
             print(f"[banded_fused] float32 mesh V={args[0].num_vertices} "
                   f"E={times['e']} (banded order, padded) l1+pos, per call: "
                   f"kernel {times['ms'] * 1e3:.2f} us "
-                  f"({times['device_us']:.2f} us of device time), plain "
-                  f"{times['plain_ms'] * 1e3:.2f} us", flush=True)
+                  f"({times['device_us']:.2f} us of device time, "
+                  f"{times['host_us']:.2f} us of host time over 10,000 "
+                  f"calls), plain {times['plain_ms'] * 1e3:.2f} us",
+                  flush=True)
     return errs, times
 
 
@@ -2311,7 +2320,8 @@ def phase_circulant_fused(device="cuda"):
     state, for the four vertex proxes, float64 and float32: on the mesh's
     circulant container (64 families and a banded remainder) and on the
     140 x 140 grid built as a circulant container (2 families, no
-    remainder); float32 times per call on the mesh."""
+    remainder); float32 times per call on the mesh (CUDA events, device
+    time, host time)."""
     import torch
     from cp_pfdr_graph_d1_tpu_torch import CirculantGraphD1
     from cp_pfdr_graph_d1_tpu_torch.ops import circulant_fused as cf
@@ -2337,14 +2347,18 @@ def phase_circulant_fused(device="cuda"):
                     device == "cuda":
                 kw = dict(rho=1.5, vkind="l1", positivity=True, lo=-np.inf,
                           hi=np.inf)
+                step = lambda: cf.fused_circulant_iteration(  # noqa
+                    *args, **kw)
                 times = time_pair(
-                    lambda: cf.fused_circulant_iteration(*args, **kw),
-                    lambda: cf.circulant_fused_plain(*args, **kw))
-                times.update(f=len(g.offsets), vv=g.vv, rem=g.num_rem)
+                    step, lambda: cf.circulant_fused_plain(*args, **kw))
+                times.update(f=len(g.offsets), vv=g.vv, rem=g.num_rem,
+                             host_us=host_us(step))
                 print(f"[circulant_fused] float32 mesh l1+pos, per call: "
                       f"kernel {times['ms'] * 1e3:.2f} us "
-                      f"({times['device_us']:.2f} us of device time), plain "
-                      f"{times['plain_ms'] * 1e3:.2f} us", flush=True)
+                      f"({times['device_us']:.2f} us of device time, "
+                      f"{times['host_us']:.2f} us of host time over 10,000 "
+                      f"calls), plain {times['plain_ms'] * 1e3:.2f} us",
+                      flush=True)
     return errs, times
 
 
@@ -3747,17 +3761,19 @@ def main():
              replaces="banded_fused.py:165", max_abs_err=bf_err[f32],
              max_abs_err_f64=bf_err[f64], ms=bf_t["ms"],
              plain_ms=bf_t["plain_ms"], device_us=bf_t["device_us"],
+             host_us_per_call=bf_t["host_us"],
              shape=f"mesh V={v_eeg} E={bf_t['e']} (banded order, padded), "
-                   f"one PFDR stage"),
+                   f"one PFDR stage: lanes per vertex, one launch"),
         dict(name="circulant_fused", source="circulant_fused.cu",
              replaces="circulant_fused.py:219",
              max_abs_err=max(cf_err[(gn, f32)] for gn in ("mesh", "grid")),
              max_abs_err_f64=max(cf_err[(gn, f64)]
                                  for gn in ("mesh", "grid")),
              ms=cf_t["ms"], plain_ms=cf_t["plain_ms"],
-             device_us=cf_t["device_us"],
+             device_us=cf_t["device_us"], host_us_per_call=cf_t["host_us"],
              shape=f"mesh F={cf_t['f']} VV={cf_t['vv']} + {cf_t['rem']} "
-                   f"remainder slots, one PFDR stage"),
+                   f"remainder slots, one PFDR stage (2 launches; the "
+                   f"kernel moves the bound's 7 edge streams)"),
         dict(name="circulant_fused_simplex",
              source="circulant_fused_simplex.cu",
              replaces="circulant_fused_simplex.py:232",
@@ -3815,6 +3831,11 @@ def compare_timings(device="cuda"):
     and run it there), so that two versions are compared on one card in
     one call: ``circulant_fused_simplex`` per call on the mesh (K = 4,
     al = 1, float32; CUDA events over 200 calls, and device time),
+    ``circulant_fused`` and ``banded_fused`` per call on the mesh (float32,
+    l1 with positivity; CUDA events over 200 calls, device time, and the
+    host clock over 10,000 calls), the ``[pfdr-mesh]`` and monitored
+    ``[pfdr-mesh-banded]`` solves in microseconds per iteration (3000
+    float32 iterations after a warm-up of 300),
     ``solve_small`` per 300 float32 iterations on phase_solve_small's two
     partitions (dense; the schedule the wrapper takes; 20 solves), the EEG
     host cut end to end (min of two warm runs, as ``[cp]``) with its
@@ -3830,6 +3851,8 @@ def compare_timings(device="cuda"):
     phase_build()
     import torch
     from cp_pfdr_graph_d1_tpu_torch.ops import banded
+    from cp_pfdr_graph_d1_tpu_torch.ops import banded_fused as bf
+    from cp_pfdr_graph_d1_tpu_torch.ops import circulant_fused as cf
     from cp_pfdr_graph_d1_tpu_torch.ops import circulant_fused_simplex as cfs
     from cp_pfdr_graph_d1_tpu_torch.ops import mincut_fused as mf
     from cp_pfdr_graph_d1_tpu_torch.ops import solve_small as ss
@@ -3839,6 +3862,27 @@ def compare_timings(device="cuda"):
           f"al=1: {cuda_ms(step, 200) * 1e3:.2f} us per call, "
           f"{device_profile(step, 200)[0]:.2f} us of device time",
           flush=True)
+    _, _, a, y = build_mesh_problem()
+    kw = dict(rho=1.5, vkind="l1", positivity=True, lo=-np.inf, hi=np.inf)
+    for kind, fn in (("circulant", cf.fused_circulant_iteration),
+                     ("banded", bf.fused_banded_iteration)):
+        args = stage_args(mesh_graph(kind, torch.float32, device), a, y,
+                          torch.float32, device)
+        step = lambda: fn(*args, **kw)  # noqa
+        print(f"[compare] {kind}_fused float32 mesh l1+pos: "
+              f"{cuda_ms(step, 200) * 1e3:.2f} us per call, "
+              f"{device_profile(step, 200)[0]:.2f} us of device time, "
+              f"{host_us(step):.2f} us of host time per call (10,000 "
+              f"calls)", flush=True)
+    for name, container, monitor in (("pfdr-mesh", "auto", False),
+                                     ("pfdr-mesh-banded monitored", "banded",
+                                      True)):
+        mesh_pfdr(torch.float32, device, container, 300, monitor)
+        _, it, dt = mesh_pfdr(torch.float32, device, container, 3000,
+                              monitor)
+        print(f"[compare] {name} float32: {dt * 1e6 / it:.2f} us per "
+              f"iteration ({it} iterations, after a 300-iteration "
+              f"warm-up)", flush=True)
     cv1, rg1, eu, ev, la = first_cut_partition()
     for cv, rg in ((cv1, rg1), block_partition(eu, ev, la)):
         args, rv = small_inputs("dense", cv, rg, torch.float32, device)

@@ -41,6 +41,7 @@ class BandedGraphD1(GraphD1):
         self.mode = mode
         self._edge_index = None
         self._banded_plans = {}  # ops.banded's launch plans
+        self._stage_plans = {}   # ops.banded_fused's launch plans
 
     @classmethod
     def create(cls, eu, ev, la_d1, num_vertices: Optional[int] = None,

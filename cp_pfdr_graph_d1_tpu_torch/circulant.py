@@ -102,6 +102,7 @@ class CirculantGraphD1(GraphD1):
         self.offsets = tuple(int(d) for d in offsets)
         self.vv8 = int(vv8)
         self.num_rem = 0 if rem_graph is None else rem_graph.num_edges
+        self._stage_plans = {}  # ops.circulant_fused's launch plans
 
     @property
     def vv(self) -> int:

@@ -115,21 +115,6 @@ struct BandedPlan {
   int ne, nv, n_long, k, device;
 };
 
-// runs launch() with the plan's device current, restoring the caller's
-template <typename Launch>
-inline int on_device(int device, Launch launch) {
-  int prev = 0;
-  cudaError_t err = cudaGetDevice(&prev);
-  if (err == cudaSuccess && prev != device) err = cudaSetDevice(device);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  err = launch();
-  if (prev != device) {
-    const cudaError_t back = cudaSetDevice(prev);
-    if (err == cudaSuccess) err = back;
-  }
-  return static_cast<int>(err);
-}
-
 // out: [2, E, K], the u-ends then the v-ends
 template <typename T>
 int banded_gather(const BandedPlan *p, const T *x, T *out, void *stream) {

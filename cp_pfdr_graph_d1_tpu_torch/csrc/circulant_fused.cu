@@ -10,252 +10,286 @@
 // with relaxation of every incident slot, the weighted average back to the
 // vertex, the vertex prox, and the sums sum (x_new - x)^2 and sum x_new^2.
 //
-// Design.  The TPU kernel turns each family's endpoint gather into a flat
-// circular shift of the [VV8, 128] field (pltpu.roll), its way around the
-// missing vector gather.  Here the shift is index arithmetic: one thread
-// owns padded vertex u, meets slot (f, u) as its tail and slot
-// (f, (u - d_f) mod VV) as its head, for f = 0 .. F - 1 with the offsets
-// d_f read from a device array (F is a runtime value), then its remainder
-// edges through the remainder's incidence list (CSR, slot order).  It sums
-// in that fixed order: family by family (tail, then head), then the
-// remainder.  The head's thread recomputes the slot's forward values and
-// pair prox with the same device functions from the same inputs as the
-// tail's thread, which alone writes zu and zv of the slot: no grid barrier.
-// The remainder's padding edges (weight-0 copies of its last edge) make
-// that edge's endpoints hubs of the remainder's list; a vertex whose
-// remainder row holds more than kLongRow slots leaves its family sum in a
-// scratch row, and a second launch gives each such vertex a block that
-// sums the row in contiguous runs and a fixed shuffle tree, adds it to the
-// family sum and ends the stage.  Vertex fields hold the V real vertices;
-// reads at a padded position u >= V give 0, the zero padding of the TPU
-// layout, and the padded positions write their family slots but no
-// iterate, and count in no sum.  Virtual slots (no edge) carry
-// wu = wv = w_d1u = 0: their z values depend on the path and are never
-// consumed.  The TPU kernel derives w_d1v = 1 - w_d1u and wv from wu and
-// the Gamma ratio to save two streams; this kernel reads wv and w_d1v from
-// the preconditioner instead, so it computes exactly what the staged loop
-// computes.  The two sums go through per-block partials and a fixed-order
-// last launch: no float atomics, so a solve's iteration count does not
-// change between runs.
+// Design: the schedule of circulant_common.cuh, shared with the K-label
+// kernel circulant_fused_simplex.cu.  The TPU kernel turns each family's
+// endpoint gather into a flat circular shift of the [VV8, 128] field
+// (pltpu.roll); here the shift is index arithmetic.  A first launch writes
+// the forward field fp [VV] (0 at the padded positions), as the TPU kernel
+// computes it once, and gives each vertex whose remainder row holds more
+// than kLongRow slots (the endpoints of the remainder's padding edges, 618
+// slots each at the mesh scale) a block that sums the row's terms into
+// acc_part, in contiguous runs and a fixed shuffle tree.  The main launch
+// gives each padded vertex G threads (G = 8 at 64 families, 2 on a grid of
+// 2 families), each a contiguous group of its families; a block holds
+// 256 / G vertices, so the mesh gives 640 blocks, all resident at once
+// (kCircMinBlocks).  A thread meets slot (f, u) as its tail and slot
+// (f, (u - d_f) mod VV) as its head; the head's thread recomputes the
+// slot's pair prox with the same device function on the same inputs as the
+// tail's, which alone writes zu and zv, so no grid barrier is needed.  The
+// group sums meet in shared memory and are added in group order (family
+// order within a group; tail, then head); the group-0 thread then adds its
+// remainder edges (or its long row's sum) and ends the vertex.  Padded
+// threads write their family slots and nothing else; the z values of
+// virtual slots (no edge: wu = 0, w_d1u = 0.5) stay finite and are never
+// consumed.
 //
-// Bound.  Bytes: the function needs 7 streams of F VV family slots (zu, zv,
-// wu, w_d1u, th_d1 read, zu, zv written; wv and w_d1v follow from them and
-// Gamma), the remainder's 7 streams and its indices, 5 vertex fields.  At
-// the mesh scale (F = 64, VV = 20,480: 1,310,720 slots, plus 2,048
-// remainder slots, float32) that is about 37 MB, or 11.1 us at 3.35 TB/s.
-// This kernel moves 9 streams (about 47.5 MB, 14.2 us): reading wv and
-// w_d1v costs 2/9 of its bytes.  The arithmetic, about 30 operations per
-// slot, would take 0.6 us at 67 TFLOP/s.  The stage is bound by bytes; the
-// family layout moves 22 times as many slots as the mesh has edges.
+// wv and w_d1v are derived, as the TPU kernel derives them: w_d1v =
+// 1 - w_d1u and wv = wu (w_d1v / safe_u) (Gamma_v / safe_Gamma_u), 0 where
+// Gamma_u = 0 (a padded position).  The quadratic preconditioner builds wu
+// and wv from one raw weight, so the identity holds up to rounding; the
+// remainder's slots derive them the same way, so the kernel reads 5 edge
+// streams and writes 2.  The two sums end in the main launch: each block
+// leaves its partials, and the last block to finish (an integer ticket)
+// adds them in block order.  No float atomics: a solve's iteration count
+// does not change between runs.
+//
+// Two other schedules measured slower on the mesh (PERF.md): each family
+// slot's prox computed once, by its tail's thread, with the heads' sums in
+// a second launch that reads the new zu, zv back; and the sums ended by a
+// third, one-block launch.
+//
+// Bound.  Bytes: 7 streams of F VV family slots (zu, zv, wu, w_d1u, th_d1
+// read, zu, zv written), the remainder's 7 streams and its indices, 5
+// vertex fields.  At the mesh scale (F = 64, VV = 20,480: 1,310,720 slots,
+// plus 2,048 remainder slots, float32) that is about 37 MB, or 11.1 us at
+// 3.35 TB/s; the arithmetic, about 30 operations a slot, 0.6 us at 67
+// TFLOP/s.  The head's five loads of a slot repeat the tail's, made by
+// another block of the same wave at about the same time: they come from L2.
 #include <cstdint>
 
-#include "pfdr_common.cuh"
+#include "circulant_common.cuh"
 
 namespace cp_pfdr {
 
-constexpr int kCirculantBlock = 256;
+// What a launch needs of a graph beside the fields, prepared once per
+// (graph, fields' dtype and device, vertex prox) by the wrapper: the index
+// arrays, the scratch, the ticket and the stage's constants.
+struct CirculantPlan {
+  const int *offs;                        // family offsets d_f
+  const int *reu, *rev, *roff, *rslots;   // remainder edges and their CSR
+  const int *long_rows;
+  void *fp;        // [VV] forward values
+  void *acc_part;  // [V] long remainder rows' sums (null without long rows)
+  void *partials;  // [2 blocks] the main launch's block sums
+  int *ticket;     // 0 between launches
+  int nv, vv, nf, ner, n_long, device;
+  double rho, lo, hi;
+  int vkind, positivity;
+};
 
 template <typename T>
 struct CirculantStage {
   const T *x, *grad, *ga, *th_l1;
-  const T *zu, *zv, *wu, *wv, *w_d1u, *w_d1v, *th_d1;
-  const int *offs;                        // family offsets d_f
-  const int *reu, *rev, *roff, *rslots;   // remainder edges and their CSR
+  const T *zu, *zv, *wu, *w_d1u, *th_d1;
+  const int *offs, *reu, *rev, *roff, *rslots;
   T *xo, *zuo, *zvo;
-  T *acc_part;  // [V] family sums of the vertices of long remainder rows
-  int nv, vv, nf, ner;
+  T *acc_part, *fp;
+  int nv, vv, nf, ner, groups;
   T rho;
   int vkind, positivity;
   T lo, hi;
 };
 
-// iterate and forward value at a padded position: 0 beyond the real
-// vertices
-template <typename T>
-__device__ __forceinline__ void padded_values(const CirculantStage<T> &a,
-                                              int i, T &xi, T &pi) {
-  if (i < a.nv) {
-    xi = a.x[i];
-    pi = forward_value(xi, a.ga[i], a.grad[i]);
+// iterate and forward value at padded position i (0 beyond V): the forward
+// value computed here (RECOMPUTE, the first launch) or read from fp
+template <typename T, bool RECOMPUTE>
+__device__ __forceinline__ void vertex_values(const CirculantStage<T> &a,
+                                              int i, T &xi, T &fpi) {
+  if (RECOMPUTE) {
+    if (i < a.nv) {
+      xi = __ldg(&a.x[i]);
+      fpi = forward_value(xi, __ldg(&a.ga[i]), __ldg(&a.grad[i]));
+    } else {
+      xi = T(0);
+      fpi = T(0);
+    }
   } else {
-    xi = T(0);
-    pi = T(0);
+    xi = padded_at(a.x, a.nv, i);
+    fpi = __ldg(&a.fp[i]);
   }
+}
+
+// pair prox with relaxation of the slot at e between the tail's (xu, fpu)
+// and the head's (xw, fpw) values
+template <typename T>
+__device__ __forceinline__ void slot_prox(const CirculantStage<T> &a,
+                                          int64_t e, T fpu, T fpw, T xu,
+                                          T xw, T wdu, T &zun, T &zvn) {
+  pair_prox_relax(fpu, fpw, __ldg(&a.zu[e]), __ldg(&a.zv[e]), xu, xw, wdu,
+                  T(1) - wdu, __ldg(&a.th_d1[e]), a.rho, zun, zvn);
 }
 
 // contribution of remainder slot `slot` to the average of its vertex; the
 // tail's thread writes zu and zv
-template <typename T>
+template <typename T, bool RECOMPUTE>
 __device__ __forceinline__ T remainder_term(const CirculantStage<T> &a,
                                             int slot) {
   const bool tail = slot < a.ner;
   const int r = tail ? slot : slot - a.ner;
   const int64_t e = (int64_t)a.nf * a.vv + r;
-  const int u = a.reu[r], w = a.rev[r];
-  const T xu = a.x[u], xw = a.x[w];
-  const T pu = forward_value(xu, a.ga[u], a.grad[u]);
-  const T pw = forward_value(xw, a.ga[w], a.grad[w]);
+  const int u = __ldg(&a.reu[r]), w = __ldg(&a.rev[r]);
+  T xu, fpu, xw, fpw;
+  vertex_values<T, RECOMPUTE>(a, u, xu, fpu);
+  vertex_values<T, RECOMPUTE>(a, w, xw, fpw);
+  const T wdu = __ldg(&a.w_d1u[e]);
   T zun, zvn;
-  pair_prox_relax(pu, pw, a.zu[e], a.zv[e], xu, xw, a.w_d1u[e], a.w_d1v[e],
-                  a.th_d1[e], a.rho, zun, zvn);
+  slot_prox(a, e, fpu, fpw, xu, xw, wdu, zun, zvn);
   if (tail) {
     a.zuo[e] = zun;
     a.zvo[e] = zvn;
-    return a.wu[e] * zun;
+    return __ldg(&a.wu[e]) * zun;
   }
-  return a.wv[e] * zvn;
+  return derived_wv(__ldg(&a.wu[e]), wdu, __ldg(&a.ga[u]), __ldg(&a.ga[w])) *
+         zvn;
 }
 
-// one thread per padded vertex: families, then the remainder rows of at
-// most kLongRow slots
+// first launch.  Blocks [0, fblocks): fp on every padded vertex, one a
+// thread.  Then one block per vertex whose remainder row holds more than
+// kLongRow slots: the row's terms (forward values recomputed with the same
+// device function, so with the same bits) into acc_part
 template <typename T>
-__global__ void __launch_bounds__(kCirculantBlock)
-circulant_fused_kernel(CirculantStage<T> a, T *__restrict__ partials) {
+__global__ void __launch_bounds__(kCircFirstBlock)
+circulant_forward_kernel(CirculantStage<T> a,
+                         const int *__restrict__ long_rows, int fblocks) {
+  if (static_cast<int>(blockIdx.x) < fblocks) {
+    const int i = blockIdx.x * kCircFirstBlock + threadIdx.x;
+    if (i < a.vv) {
+      T xi, fpi;
+      vertex_values<T, true>(a, i, xi, fpi);
+      a.fp[i] = fpi;
+    }
+    return;
+  }
   __shared__ T scratch[64];
-  const int u = blockIdx.x * kCirculantBlock + threadIdx.x;
+  const int u = long_rows[blockIdx.x - fblocks];
+  int lo, hi;
+  long_row_run(__ldg(&a.roff[u]), __ldg(&a.roff[u + 1]), lo, hi);
+  T acc[1] = {T(0)};
+  for (int s = lo; s < hi; ++s)
+    acc[0] = acc[0] + remainder_term<T, true>(a, __ldg(&a.rslots[s]));
+  block_sum_values<T, 1>(acc, 1, scratch);
+  if (threadIdx.x == 0) a.acc_part[u] = acc[0];
+}
+
+// G threads per padded vertex, one group of families each; the group-0
+// thread ends the vertex, the last block to finish the sums
+template <typename T>
+__global__ void __launch_bounds__(kCircBlock, kCircMinBlocks)
+circulant_fused_kernel(CirculantStage<T> a, T *__restrict__ partials,
+                       int *__restrict__ ticket, T *__restrict__ sums) {
+  __shared__ T group_sums[kCircBlock];
+  __shared__ T scratch[64];
+  const GroupPosition pos = group_position(a.groups);
+  const int u = pos.u;
   const bool real = u < a.nv;
-  T num = T(0), den = T(0);
+  T acc[1] = {T(0)};
+  T xc = T(0);
   if (u < a.vv) {
-    T xc, pc;
-    padded_values(a, u, xc, pc);
-    T acc = T(0);
-    for (int f = 0; f < a.nf; ++f) {
-      const int d = a.offs[f];
+    T fpc;
+    vertex_values<T, false>(a, u, xc, fpc);
+    const T gc = padded_at(a.ga, a.nv, u);
+    int f0, f1;
+    group_families(pos.g, a.nf, a.groups, f0, f1);
+    for (int f = f0; f < f1; ++f) {
+      const int d = __ldg(&a.offs[f]);
       const int64_t base = (int64_t)f * a.vv;
       // slot (f, u): u -> w
       int w = u + d;
       if (w >= a.vv) w -= a.vv;
       const int64_t e = base + u;
-      T xw, pw;
-      padded_values(a, w, xw, pw);
-      T zun, zvn;
-      pair_prox_relax(pc, pw, a.zu[e], a.zv[e], xc, xw, a.w_d1u[e],
-                      a.w_d1v[e], a.th_d1[e], a.rho, zun, zvn);
+      T xw, fpw, zun, zvn;
+      vertex_values<T, false>(a, w, xw, fpw);
+      slot_prox(a, e, fpc, fpw, xc, xw, __ldg(&a.w_d1u[e]), zun, zvn);
       a.zuo[e] = zun;
       a.zvo[e] = zvn;
       if (real) {
-        acc = acc + a.wu[e] * zun;
+        acc[0] = acc[0] + __ldg(&a.wu[e]) * zun;
         // slot (f, t): t -> u
         int t = u - d;
         if (t < 0) t += a.vv;
         const int64_t e2 = base + t;
-        T xt, pt;
-        padded_values(a, t, xt, pt);
-        T zun2, zvn2;
-        pair_prox_relax(pt, pc, a.zu[e2], a.zv[e2], xt, xc, a.w_d1u[e2],
-                        a.w_d1v[e2], a.th_d1[e2], a.rho, zun2, zvn2);
-        acc = acc + a.wv[e2] * zvn2;
+        const T wdu2 = __ldg(&a.w_d1u[e2]);
+        T xt, fpt, zun2, zvn2;
+        vertex_values<T, false>(a, t, xt, fpt);
+        slot_prox(a, e2, fpt, fpc, xt, xc, wdu2, zun2, zvn2);
+        acc[0] = acc[0] + derived_wv(__ldg(&a.wu[e2]), wdu2,
+                                     padded_at(a.ga, a.nv, t), gc) *
+                              zvn2;
       }
     }
-    if (real) {
-      const int beg = a.ner > 0 ? a.roff[u] : 0;
-      const int end = a.ner > 0 ? a.roff[u + 1] : 0;
-      if (end - beg > kLongRow) {
-        a.acc_part[u] = acc;  // the long-row launch ends this vertex
-      } else {
-        for (int s = beg; s < end; ++s) acc = acc + remainder_term(a, a.rslots[s]);
-        stage_vertex_tail(acc, a.th_l1[u], xc, a.vkind, a.positivity, a.lo,
-                          a.hi, a.xo + u, num, den);
-      }
+  }
+  add_group_sums<T, 1>(acc, 1, pos, a.groups, group_sums);
+  T num = T(0), den = T(0);
+  if (pos.g == 0 && real) {
+    const int beg = a.ner > 0 ? __ldg(&a.roff[u]) : 0;
+    const int end = a.ner > 0 ? __ldg(&a.roff[u + 1]) : 0;
+    if (end - beg > kLongRow) {
+      acc[0] = acc[0] + a.acc_part[u];  // the first launch summed the row
+    } else {
+      for (int s = beg; s < end; ++s)
+        acc[0] = acc[0] + remainder_term<T, false>(a, __ldg(&a.rslots[s]));
     }
+    stage_vertex_tail(acc[0], __ldg(&a.th_l1[u]), xc, a.vkind, a.positivity,
+                      a.lo, a.hi, a.xo + u, num, den);
   }
   block_sum2(num, den, scratch);
-  if (threadIdx.x == 0) {
-    partials[2 * blockIdx.x] = num;
-    partials[2 * blockIdx.x + 1] = den;
-  }
-}
-
-// one block per vertex whose remainder row holds more than kLongRow slots;
-// its sums go to partials[2 (first + i)]
-template <typename T>
-__global__ void __launch_bounds__(kCirculantBlock)
-circulant_fused_long_kernel(CirculantStage<T> a,
-                            const int *__restrict__ long_rows,
-                            T *__restrict__ partials, int first) {
-  __shared__ T scratch[64];
-  const int u = long_rows[blockIdx.x];
-  int lo, hi;
-  long_row_run(a.roff[u], a.roff[u + 1], lo, hi);
-  T acc = T(0), unused = T(0);
-  for (int s = lo; s < hi; ++s) acc = acc + remainder_term(a, a.rslots[s]);
-  block_sum2(acc, unused, scratch);
-  if (threadIdx.x == 0) {
-    T num, den;
-    stage_vertex_tail(a.acc_part[u] + acc, a.th_l1[u], a.x[u], a.vkind,
-                      a.positivity, a.lo, a.hi, a.xo + u, num, den);
-    partials[2 * (first + blockIdx.x)] = num;
-    partials[2 * (first + blockIdx.x) + 1] = den;
-  }
-}
-
-// last pass: one block adds the partials in a fixed order
-template <typename T>
-__global__ void __launch_bounds__(kCirculantBlock)
-circulant_fused_sums_kernel(const T *__restrict__ partials, int nparts,
-                            T *__restrict__ sums) {
-  __shared__ T scratch[64];
-  T a = T(0), b = T(0);
-  for (int k = threadIdx.x; k < nparts; k += kCirculantBlock) {
-    a += partials[2 * k];
-    b += partials[2 * k + 1];
-  }
-  block_sum2(a, b, scratch);
-  if (threadIdx.x == 0) {
-    sums[0] = a;
-    sums[1] = b;
-  }
+  last_block_sums(num, den, partials, ticket, sums, scratch);
 }
 
 template <typename T>
-int circulant_fused(const CirculantStage<T> &a, const int *long_rows,
-                    int n_long, T *partials, T *sums, void *stream) {
-  if (a.nv < 1 || a.vv < a.nv || a.nf < 1 || a.ner < 0 || n_long < 0)
+int circulant_fused(const CirculantPlan *p, const T *x, const T *grad,
+                    const T *ga, const T *th_l1, const T *zu, const T *zv,
+                    const T *wu, const T *w_d1u, const T *th_d1, T *xo, T *zo,
+                    T *sums, void *stream) {
+  if (p->nv < 1 || p->vv < p->nv || p->nf < 1 || p->ner < 0 ||
+      p->n_long < 0)
     return -1;
-  const int nblocks = (a.vv + kCirculantBlock - 1) / kCirculantBlock;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  circulant_fused_kernel<T><<<nblocks, kCirculantBlock, 0, s>>>(a, partials);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (n_long > 0) {
-    circulant_fused_long_kernel<T><<<n_long, kCirculantBlock, 0, s>>>(
-        a, long_rows, partials, nblocks);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  circulant_fused_sums_kernel<T><<<1, kCirculantBlock, 0, s>>>(
-      partials, nblocks + n_long, sums);
-  return static_cast<int>(cudaGetLastError());
+  const int64_t ne = (int64_t)p->nf * p->vv + p->ner;
+  const CirculantStage<T> a = {x, grad, ga, th_l1, zu, zv, wu, w_d1u, th_d1,
+                               p->offs, p->reu, p->rev, p->roff, p->rslots,
+                               xo, zo, zo + ne,
+                               static_cast<T *>(p->acc_part),
+                               static_cast<T *>(p->fp), p->nv, p->vv, p->nf,
+                               p->ner, family_groups(p->nf), T(p->rho),
+                               p->vkind, p->positivity, T(p->lo), T(p->hi)};
+  return on_device(p->device, [&] {
+    cudaStream_t s = static_cast<cudaStream_t>(stream);
+    const int fblocks = forward_blocks(a.vv);
+    circulant_forward_kernel<T><<<fblocks + p->n_long, kCircFirstBlock, 0,
+                                  s>>>(a, p->long_rows, fblocks);
+    cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+    circulant_fused_kernel<T>
+        <<<circulant_blocks(a.vv, a.groups), kCircBlock, 0, s>>>(
+            a, static_cast<T *>(p->partials), p->ticket, sums);
+    return cudaGetLastError();
+  });
 }
 
 }  // namespace cp_pfdr
 
 extern "C" {
 
-int cp_circulant_partials_len(int vv, int n_long) {
-  return 2 * ((vv + cp_pfdr::kCirculantBlock - 1) / cp_pfdr::kCirculantBlock +
-              n_long);
+int cp_circulant_plan_size() { return (int)sizeof(cp_pfdr::CirculantPlan); }
+
+// (family groups, main-launch blocks) of a graph of nf families over vv
+// padded vertices, as the launch takes them
+void cp_circulant_launch_shape(int vv, int nf, int *out) {
+  out[0] = cp_pfdr::family_groups(nf);
+  out[1] = cp_pfdr::circulant_blocks(vv, out[0]);
 }
 
-#define CP_CIRCULANT_ENTRY(NAME, T)                                          \
-  int NAME(const T *x, const T *grad, const T *ga, const T *th_l1,           \
-           const T *zu, const T *zv, const T *wu, const T *wv,               \
-           const T *w_d1u, const T *w_d1v, const T *th_d1, const int *offs,  \
-           const int *reu, const int *rev, const int *roff,                  \
-           const int *rslots, const int *long_rows, int n_long, T *xo,       \
-           T *zuo, T *zvo, T *acc_part, T *partials, T *sums, int nv,        \
-           int vv, int nf, int ner, double rho, int vkind, int positivity,   \
-           double lo, double hi, void *stream) {                             \
-    cp_pfdr::CirculantStage<T> a = {                                         \
-        x,   grad, ga,     th_l1, zu,       zv, wu, wv, w_d1u, w_d1v, th_d1, \
-        offs, reu, rev,    roff,  rslots,   xo, zuo, zvo, acc_part, nv, vv,  \
-        nf,  ner,  T(rho), vkind, positivity, T(lo), T(hi)};                 \
-    return cp_pfdr::circulant_fused<T>(a, long_rows, n_long, partials, sums, \
-                                       stream);                              \
+#define CP_CIRCULANT_ENTRY(SUFFIX, T)                                        \
+  int cp_circulant_fused_##SUFFIX(                                           \
+      const cp_pfdr::CirculantPlan *plan, const T *x, const T *grad,         \
+      const T *ga, const T *th_l1, const T *zu, const T *zv, const T *wu,    \
+      const T *w_d1u, const T *th_d1, T *xo, T *zo, T *sums, void *stream) { \
+    return cp_pfdr::circulant_fused<T>(plan, x, grad, ga, th_l1, zu, zv, wu, \
+                                       w_d1u, th_d1, xo, zo, sums, stream);  \
   }
 
-CP_CIRCULANT_ENTRY(cp_circulant_fused_f32, float)
-CP_CIRCULANT_ENTRY(cp_circulant_fused_f64, double)
+CP_CIRCULANT_ENTRY(f32, float)
+CP_CIRCULANT_ENTRY(f64, double)
 
 #undef CP_CIRCULANT_ENTRY
 }

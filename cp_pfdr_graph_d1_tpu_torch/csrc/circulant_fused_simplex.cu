@@ -19,11 +19,12 @@
 // thread u reads plane k of a family at k E + f VV + u and a warp's loads
 // are coalesced.
 //
-// Design.  A first short launch writes the forward field fp [K, VV] (0 at
-// the padded positions u >= V), as the TPU kernel computes it once into
-// scratch.  The main launch gives each padded vertex G threads (G = 8 at
-// 64 families), each a contiguous group of its families: a block holds
-// 256 / G vertices times G groups, and a warp 32 consecutive vertices of
+// Design (the schedule of circulant_common.cuh, shared with
+// circulant_fused.cu).  A first short launch writes the forward field
+// fp [K, VV] (0 at the padded positions u >= V), as the TPU kernel computes
+// it once into scratch.  The main launch gives each padded vertex G threads
+// (G = 8 at 64 families), each a contiguous group of its families: a block
+// holds 256 / G vertices times G groups, and a warp 32 consecutive vertices of
 // one group, so every slot load is coalesced and the mesh gives 640
 // blocks, about five a SM (registers capped at 48 a thread, so all are
 // resident at once).  A thread meets slot (f, u) as its tail and slot
@@ -68,19 +69,11 @@
 // about the same time: they come from L2.
 #include <cstdint>
 
-#include "pfdr_common.cuh"
+#include "circulant_common.cuh"
 
 namespace cp_pfdr {
 
-constexpr int kCircSimplexBlock = 256;
-// threads of the first launch's blocks: a hub row of the remainder's
-// padding edges (618 slots at the mesh scale) takes one slot a thread
-constexpr int kCircSimplexLongBlock = 1024;
 constexpr int kMaxSimplexLabels = 32;
-constexpr int kMaxFamilyGroups = 8;
-// blocks of the main launch resident on one SM (caps its registers at 48
-// a thread: 640 blocks at the mesh scale fit in one wave)
-constexpr int kCircSimplexMinBlocks = 5;
 
 template <typename T>
 struct SimplexStage {
@@ -97,24 +90,6 @@ struct SimplexStage {
   int label_mode;
   SimplexLoss<T> ls;
 };
-
-// family groups of a vertex: the largest power of two at most
-// min(F, kMaxFamilyGroups)
-inline int family_groups(int nf) {
-  int g = 1;
-  while (2 * g <= nf && 2 * g <= kMaxFamilyGroups) g *= 2;
-  return g;
-}
-
-inline int simplex_blocks(int vv, int groups) {
-  const int tv = kCircSimplexBlock / groups;
-  return (vv + tv - 1) / tv;
-}
-
-template <typename T>
-__device__ __forceinline__ T padded_at(const T *plane, int nv, int i) {
-  return i < nv ? __ldg(plane + i) : T(0);
-}
 
 // label value and forward value of vertex i in plane k (0 beyond V): the
 // forward value computed here (RECOMPUTE, the first launch) or read from
@@ -136,16 +111,6 @@ __device__ __forceinline__ void plane_values(const SimplexStage<T> &a, int k,
     pv = padded_at(a.p + (int64_t)k * a.nv, a.nv, i);
     fpv = __ldg(&a.fp[(int64_t)k * a.vv + i]);
   }
-}
-
-// wv of a slot from its wu and w_d1u and its endpoints' Gamma, as the TPU
-// kernel derives it (ops/circulant_fused_simplex.py:113-119)
-template <typename T>
-__device__ __forceinline__ T derived_wv(T wu, T wdu, T gau, T gav) {
-  const T wdv = T(1) - wdu;
-  const T safe_u = wdu > T(0) ? wdu : T(1);
-  const T safe_g = gau > T(0) ? gau : T(1);
-  return wu * (wdv / safe_u) * (gau > T(0) ? gav / safe_g : T(0));
 }
 
 // pair prox with relaxation of the slot at e between the tail's (pu, fpu)
@@ -239,14 +204,14 @@ __device__ __forceinline__ T vertex_tail(const SimplexStage<T> &a, int u,
 // tree per pair of labels, into acc_part; the main launch adds them to the
 // vertex's family sums
 template <typename T, int KT>
-__global__ void __launch_bounds__(kCircSimplexLongBlock)
+__global__ void __launch_bounds__(kCircFirstBlock)
 circulant_simplex_forward_kernel(SimplexStage<T> a,
                                  const int *__restrict__ long_rows,
                                  int fblocks, int k_runtime) {
   constexpr int KA = KT > 0 ? KT : kMaxSimplexLabels;
   const int K = KT > 0 ? KT : k_runtime;
   if (static_cast<int>(blockIdx.x) < fblocks) {
-    const int64_t i = (int64_t)blockIdx.x * kCircSimplexLongBlock + threadIdx.x;
+    const int64_t i = (int64_t)blockIdx.x * kCircFirstBlock + threadIdx.x;
     if (i < (int64_t)K * a.vv) {
       const int k = static_cast<int>(i / a.vv);
       const int u = static_cast<int>(i - (int64_t)k * a.vv);
@@ -265,11 +230,7 @@ circulant_simplex_forward_kernel(SimplexStage<T> a,
   long_row_run(__ldg(&a.roff[u]), __ldg(&a.roff[u + 1]), lo, hi);
   for (int s = lo; s < hi; ++s)
     add_remainder_slot<T, KA, true>(a, __ldg(&a.rslots[s]), acc, K);
-  for (int k = 0; k < K; k += 2) {
-    T b = k + 1 < K ? acc[k + 1] : T(0);
-    block_sum2(acc[k], b, scratch);
-    if (k + 1 < K) acc[k + 1] = b;
-  }
+  block_sum_values<T, KA>(acc, K, scratch);
   if (threadIdx.x == 0) {
 #pragma unroll
     for (int k = 0; k < K; ++k) a.acc_part[(int64_t)k * a.nv + u] = acc[k];
@@ -279,17 +240,15 @@ circulant_simplex_forward_kernel(SimplexStage<T> a,
 // G threads per padded vertex, one group of families each (module
 // comment); the group-0 thread ends the vertex
 template <typename T, int KT>
-__global__ void __launch_bounds__(kCircSimplexBlock, kCircSimplexMinBlocks)
+__global__ void __launch_bounds__(kCircBlock, kCircMinBlocks)
 circulant_simplex_kernel(SimplexStage<T> a, T *__restrict__ partials,
                          int k_runtime) {
   constexpr int KA = KT > 0 ? KT : kMaxSimplexLabels;
   const int K = KT > 0 ? KT : k_runtime;
-  __shared__ T group_sums[kCircSimplexBlock];
+  __shared__ T group_sums[kCircBlock];
   __shared__ T scratch[64];
-  const int tv = kCircSimplexBlock / a.groups;
-  const int g = threadIdx.x / tv;
-  const int lane = threadIdx.x - g * tv;
-  const int u = blockIdx.x * tv + lane;
+  const GroupPosition pos = group_position(a.groups);
+  const int u = pos.u;
   const bool real = u < a.nv;
   T acc[KA];
 #pragma unroll
@@ -301,8 +260,9 @@ circulant_simplex_kernel(SimplexStage<T> a, T *__restrict__ partials,
       plane_values<T, false>(a, k, u, pc[k], fpc[k]);
       gc[k] = padded_at(a.ga + (int64_t)k * a.nv, a.nv, u);
     }
-    const int f_end = (g + 1) * a.nf / a.groups;
-    for (int f = g * a.nf / a.groups; f < f_end; ++f) {
+    int f0, f1;
+    group_families(pos.g, a.nf, a.groups, f0, f1);
+    for (int f = f0; f < f1; ++f) {
       const int d = __ldg(&a.offs[f]);
       int w = u + d;
       if (w >= a.vv) w -= a.vv;
@@ -335,17 +295,9 @@ circulant_simplex_kernel(SimplexStage<T> a, T *__restrict__ partials,
     }
   }
   // the group sums, label by label, added in group order
-#pragma unroll
-  for (int k = 0; k < K; ++k) {
-    if (g > 0) group_sums[threadIdx.x] = acc[k];
-    __syncthreads();
-    if (g == 0)
-      for (int h = 1; h < a.groups; ++h)
-        acc[k] = acc[k] + group_sums[h * tv + lane];
-    __syncthreads();
-  }
+  add_group_sums<T, KA>(acc, K, pos, a.groups, group_sums);
   T dsum = T(0);
-  if (g == 0 && real) {
+  if (pos.g == 0 && real) {
     const int beg = a.ner > 0 ? __ldg(&a.roff[u]) : 0;
     const int end = a.ner > 0 ? __ldg(&a.roff[u + 1]) : 0;
     if (end - beg > kLongRow) {
@@ -366,12 +318,12 @@ circulant_simplex_kernel(SimplexStage<T> a, T *__restrict__ partials,
 
 // last pass: one block adds the partials in a fixed order
 template <typename T>
-__global__ void __launch_bounds__(kCircSimplexBlock)
+__global__ void __launch_bounds__(kCircBlock)
 circulant_simplex_sum_kernel(const T *__restrict__ partials, int nparts,
                              T *__restrict__ sums) {
   __shared__ T scratch[64];
   T a = T(0), b = T(0);
-  for (int k = threadIdx.x; k < nparts; k += kCircSimplexBlock)
+  for (int k = threadIdx.x; k < nparts; k += kCircBlock)
     a += partials[k];
   block_sum2(a, b, scratch);
   if (threadIdx.x == 0) sums[0] = a;
@@ -382,15 +334,14 @@ int launch_circ_simplex(const SimplexStage<T> &a, const int *long_rows,
                         int n_long, T *partials, int nblocks, int k,
                         cudaStream_t s) {
   // the forward field and the long rows
-  const int fblocks = static_cast<int>(
-      ((int64_t)k * a.vv + kCircSimplexLongBlock - 1) / kCircSimplexLongBlock);
+  const int fblocks = forward_blocks((int64_t)k * a.vv);
   circulant_simplex_forward_kernel<T, KT>
-      <<<fblocks + n_long, kCircSimplexLongBlock, 0, s>>>(a, long_rows,
-                                                          fblocks, k);
+      <<<fblocks + n_long, kCircFirstBlock, 0, s>>>(a, long_rows, fblocks,
+                                                    k);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   circulant_simplex_kernel<T, KT>
-      <<<nblocks, kCircSimplexBlock, 0, s>>>(a, partials, k);
+      <<<nblocks, kCircBlock, 0, s>>>(a, partials, k);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -401,7 +352,7 @@ int circulant_simplex(const SimplexStage<T> &a, const int *long_rows,
   if (a.nv < 1 || a.vv < a.nv || a.nf < 1 || a.ner < 0 || n_long < 0 ||
       k < 1 || k > kMaxSimplexLabels)
     return -1;
-  const int nblocks = simplex_blocks(a.vv, a.groups);
+  const int nblocks = circulant_blocks(a.vv, a.groups);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   int err;
   switch (k) {
@@ -415,7 +366,7 @@ int circulant_simplex(const SimplexStage<T> &a, const int *long_rows,
     default: err = launch_circ_simplex<T, 0>(a, long_rows, n_long, partials, nblocks, k, s); break;
   }
   if (err != 0) return err;
-  circulant_simplex_sum_kernel<T><<<1, kCircSimplexBlock, 0, s>>>(
+  circulant_simplex_sum_kernel<T><<<1, kCircBlock, 0, s>>>(
       partials, nblocks, sums);
   return static_cast<int>(cudaGetLastError());
 }
@@ -425,7 +376,7 @@ int circulant_simplex(const SimplexStage<T> &a, const int *long_rows,
 extern "C" {
 
 int cp_circulant_simplex_partials_len(int vv, int nf) {
-  return cp_pfdr::simplex_blocks(vv, cp_pfdr::family_groups(nf));
+  return cp_pfdr::circulant_blocks(vv, cp_pfdr::family_groups(nf));
 }
 
 int cp_circulant_simplex_max_labels() { return cp_pfdr::kMaxSimplexLabels; }

@@ -243,6 +243,57 @@ __device__ __forceinline__ void block_sum_k(T (&v)[K], T *scratch, T &out) {
   __syncthreads();
 }
 
+// Ends a launch's two sums (a, b) in the launch itself.  Call with every
+// thread of the block, after a block reduction that left the block's sums
+// in thread 0.  Thread 0 writes them to partials[2 blockIdx.x ...]; after a
+// fence, an integer ticket elects the last block to finish, which adds all
+// blocks' partials in block order (thread i the blocks i, i + blockDim.x,
+// ..., then block_sum2), writes sums[0..1] and resets the ticket to 0 for
+// the next launch.  No float atomics: the sums are the same in every run.
+// One ticket serves one launch at a time.
+template <typename T>
+__device__ __forceinline__ void last_block_sums(T a, T b, T *partials,
+                                                int *ticket, T *sums,
+                                                T *scratch) {
+  __shared__ int is_last;
+  if (threadIdx.x == 0) {
+    partials[2 * blockIdx.x] = a;
+    partials[2 * blockIdx.x + 1] = b;
+    __threadfence();
+    is_last = atomicAdd(ticket, 1) == static_cast<int>(gridDim.x) - 1;
+  }
+  __syncthreads();
+  if (!is_last) return;
+  __threadfence();
+  T s = T(0), t = T(0);
+  for (int k = threadIdx.x; k < static_cast<int>(gridDim.x);
+       k += blockDim.x) {
+    s += __ldcg(&partials[2 * k]);
+    t += __ldcg(&partials[2 * k + 1]);
+  }
+  block_sum2(s, t, scratch);
+  if (threadIdx.x == 0) {
+    sums[0] = s;
+    sums[1] = t;
+    *ticket = 0;
+  }
+}
+
+// runs launch() with `device` current, restoring the caller's device
+template <typename Launch>
+inline int on_device(int device, Launch launch) {
+  int prev = 0;
+  cudaError_t err = cudaGetDevice(&prev);
+  if (err == cudaSuccess && prev != device) err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = launch();
+  if (prev != device) {
+    const cudaError_t back = cudaSetDevice(prev);
+    if (err == cudaSuccess) err = back;
+  }
+  return static_cast<int>(err);
+}
+
 // Launches a kernel that synchronises its whole grid (cooperative launch):
 // as many blocks of `threads` as can be resident at once on the device,
 // at most `max_blocks`.  Returns a CUDA error code (0 on success); a

@@ -163,7 +163,8 @@ class _Plan(ctypes.Structure):
 def _lib():
     """The kernels' library, opened as a ``ctypes.PyDLL``: a call keeps
     the GIL (the entries only enqueue launches), which saves its release
-    and reacquisition on every launch."""
+    and reacquisition on every launch.  The stage wrappers
+    (``banded_fused``, ``circulant_fused``) declare their entries on it."""
     lib = ctypes.PyDLL(_build.cuda_kernels()._name)
     ptr, i = ctypes.c_void_p, ctypes.c_int
     for t in ("f32", "f64"):

@@ -326,3 +326,39 @@ def test_cut_pursuit_with_hub_matches_jax(fused, monkeypatch):
 
     np.testing.assert_allclose(objective(x_t), objective(x_j), rtol=1e-9)
     assert len(res_t.rx) > 100
+
+
+@pytest.mark.parametrize("name", sorted(GRAPHS))
+def test_fused_launch_shape_covers_every_slot_once(name):
+    """``banded_fused.launch_shape`` read as the kernel reads it: lanes are
+    the smallest power of two at least the mean slot count of the rows of
+    at most LONG_ROW slots; each such row's slots go to exactly one lane of
+    one tile thread (lane j takes beg + j, beg + j + L, ...), each of its
+    vertices to exactly one lane 0, and each longer row to exactly one
+    block past the tiles."""
+    _, tg = pair(name)
+    idx = tg.edge_index()
+    offsets = idx.offsets.numpy().astype(np.int64)
+    deg = np.diff(offsets)
+    lanes, tiles, n_long = banded_fused.launch_shape(offsets, idx.long_rows)
+    short = deg <= banded.LONG_ROW
+    assert lanes < 2 * deg[short].mean() <= 2 * lanes or lanes == 1
+    assert n_long == int((~short).sum()) == idx.long_rows.numel()
+    per = banded_fused.BLOCK // lanes
+    i = np.arange(banded_fused.BLOCK)
+    v = (np.arange(tiles)[:, None] * per + i // lanes).ravel()
+    j = np.tile(i % lanes, tiles)
+    live = v < V
+    v, j = v[live], j[live]
+    lane0 = np.zeros(V, np.int64)
+    np.add.at(lane0, v[j == 0], 1)
+    assert (lane0 == 1).all()
+    slot_cover = np.zeros(offsets[-1], np.int64)
+    for vi, ji in zip(v, j):
+        if short[vi]:
+            slot_cover[offsets[vi] + ji:offsets[vi + 1]:lanes] += 1
+    long_rows = idx.long_rows.numpy()
+    for vi in long_rows:
+        slot_cover[offsets[vi]:offsets[vi + 1]] += 1
+    assert (slot_cover == 1).all()
+    assert len(set(long_rows.tolist())) == n_long

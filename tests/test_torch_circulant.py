@@ -260,3 +260,94 @@ def test_jax_state_resumes_in_port():
     assert res.it == int(full.it) == 120
     np.testing.assert_allclose(res.x.numpy(), np.asarray(full.x), rtol=0,
                                atol=1e-10)
+
+
+def kernel_endpoint_gamma(g, ga):
+    """Gamma at each slot's two ends as the CUDA kernel reads it: a family
+    slot (f, u) joins padded vertex u to (u + d_f) mod VV, and a padded
+    position (u >= V) reads 0; a remainder slot reads its endpoints."""
+    nf, vv = len(g.offsets), g.vv
+    pad = torch.cat([ga, ga.new_zeros(vv - g.num_vertices)])
+    u = torch.arange(vv).repeat(nf)
+    w = (u + torch.tensor(g.offsets).repeat_interleave(vv)) % vv
+    gau, gav = g.gather_endpoints(ga)
+    return (torch.cat([pad[u], gau[nf * vv:]]),
+            torch.cat([pad[w], gav[nf * vv:]]))
+
+
+@pytest.mark.parametrize("kind", ["mesh", "grid"])
+def test_kernel_derived_weights_match_preconditioner(kind):
+    """The CUDA kernel derives ``w_d1v = 1 - w_d1u`` and ``wv = wu (w_d1v /
+    safe_u) (Gamma_v / safe_Gamma_u)`` (0 where Gamma_u = 0) instead of
+    reading them, as the TPU kernel does: on the mesh's and the grid's
+    circulant containers, with one vertex whose edges all have weight 0,
+    the identity holds for the quadratic preconditioner's outputs after
+    ``initial_precondition`` and after ``recondition``, to 1e-14 relative
+    in float64, virtual slots included."""
+    from cp_pfdr_graph_d1_tpu_torch.config import Lipsch
+    from cp_pfdr_graph_d1_tpu_torch.solvers import pfdr_quadratic as pq
+    if kind == "mesh":
+        (eu, ev, la), v, kw = mesh_graph(seed=2), V, CIRC_KW
+    else:
+        (eu, ev, la), v, kw = grid_graph(), 256, dict(max_families=4,
+                                                      min_count=2)
+    la = la.copy()
+    la[(eu == 5) | (ev == 5)] = 0.0  # vertex 5 keeps no weighted edge
+    g = T.CirculantGraphD1.create(eu, ev, la, num_vertices=v,
+                                  dtype=torch.float64, device="cpu", **kw)
+    r = np.random.default_rng(7)
+    a = torch.from_numpy(r.normal(size=(24, v)) / np.sqrt(24))
+    op, obs = T.DenseOp(a), a @ torch.from_numpy(r.normal(size=v))
+    la_l1 = torch.full((v,), 0.02, dtype=torch.float64)
+    lip = float(torch.linalg.matrix_norm(a, 2) ** 2)
+    pre = pq.initial_precondition(op, obs, g, la_l1, 1.5, lip, Lipsch.SCAL)
+    x = torch.from_numpy(np.abs(r.normal(size=v)))
+    zu, zv = (torch.from_numpy(r.normal(size=g.num_edges)) for _ in range(2))
+    pre2, _, _ = pq.recondition(op, obs, g, la_l1, 1.5, 1e-2, lip,
+                                Lipsch.SCAL, x, op.grad(x, obs), zu, zv, pre)
+    for p in (pre, pre2):
+        assert bool((p.wu[(g.la_d1 == 0)] == 0).all())
+        gau, gav = kernel_endpoint_gamma(g, p.ga)
+        w_d1u = p.w_d1u
+        safe_u = torch.where(w_d1u > 0, w_d1u, 1.0)
+        safe_g = torch.where(gau > 0, gau, 1.0)
+        wv = p.wu * ((1.0 - w_d1u) / safe_u) * torch.where(
+            gau > 0, gav / safe_g, 0.0)
+        torch.testing.assert_close(wv, p.wv, rtol=1e-14, atol=0)
+        torch.testing.assert_close(1.0 - w_d1u, p.w_d1v, rtol=1e-14, atol=0)
+
+
+@pytest.mark.parametrize("kind", ["mesh", "grid"])
+def test_launch_shape_covers_every_slot_once(kind):
+    """``launch_shape``'s groups and blocks, read as the kernel reads them,
+    give every (padded vertex, family) pair to exactly one thread of the
+    main launch, and every remainder row to exactly one place: the
+    group-0 thread of its vertex, or (more than LONG_ROW slots) one block
+    of the first launch."""
+    from cp_pfdr_graph_d1_tpu_torch.ops.banded import LONG_ROW
+    _, g = pair(kind, seed=3)
+    nf, vv = len(g.offsets), g.vv
+    groups, blocks = circulant_fused.launch_shape(vv, nf)
+    # the largest power of two at most min(nf, MAX_GROUPS)
+    cap = min(nf, circulant_fused.MAX_GROUPS)
+    assert groups & (groups - 1) == 0 and groups <= cap < 2 * groups
+    tv = circulant_fused.BLOCK // groups
+    i = np.arange(circulant_fused.BLOCK)
+    u = (np.arange(blocks)[:, None] * tv + i % tv).ravel()
+    grp = np.tile(i // tv, blocks)
+    cover = np.zeros((vv, nf), np.int64)
+    for f in range(nf):
+        mine = (u < vv) & (grp * nf // groups <= f) \
+            & (f < (grp + 1) * nf // groups)
+        np.add.at(cover[:, f], u[mine], 1)
+    assert (cover == 1).all()
+    group0 = np.zeros(vv, np.int64)
+    np.add.at(group0, u[(u < vv) & (grp == 0)], 1)
+    assert (group0 == 1).all()
+    if g.rem_graph is not None:
+        idx = g.rem_graph.edge_index()
+        deg = np.diff(idx.offsets.numpy())
+        np.testing.assert_array_equal(idx.long_rows.numpy(),
+                                      np.nonzero(deg > LONG_ROW)[0])
+    assert circulant_fused.launch_shape(20480, 64) == (8, 640)
+    assert circulant_fused.launch_shape(20480, 2) == (2, 160)
