@@ -12,7 +12,8 @@ It imports nothing of JAX.  Phases, one or more lines each:
    all at once) and the host C++ from the repository's sources;
 3. ``stencil_fused`` against its plain PyTorch version on the 140 x 140,
    F = 2 field of the EEG-scale problem, for the four vertex proxes, in
-   float64 and float32, with the time per launch of both;
+   float64 and float32 (and ``StencilGraphD1.fused_iteration`` against the
+   standalone wrapper, bit for bit), with the time per launch of both;
 4. ``solve_small`` against its plain version on reduced problems of that
    problem (its first steepest cut, about 2.6k components, and a 128-block
    partition), for the dense, Gram and diagonal operators, on the
@@ -32,7 +33,9 @@ It imports nothing of JAX.  Phases, one or more lines each:
    ``solve_small``: a
    40,000-block partition of the 724 x 724 grid with the diagonal
    operator, and the EEG grid with every vertex its own component and the
-   dense operator; then ``solve_small`` against ``solve_fused`` on the same
+   dense operator; the unmonitored ``pfdr_quadratic_d1`` on a 1448 x 1448
+   banded grid in float64, whose blocks' iterates leave shared memory;
+   then ``solve_small`` against ``solve_fused`` on the same
    reduced problems, ``solve_small`` on every cluster size (the crossover
    behind ``SOLVE_FUSED_MIN_RV_CAP`` and ``solve_small.cluster_size``);
 8. ``stencil_fused_simplex`` against its plain version at 140 x 140,
@@ -289,10 +292,18 @@ def phase_stencil(device="cuda"):
             kw = dict(shifts=g.shifts, rho=1.5, vkind=vp.kind,
                       positivity=vp.positivity, lo=float(vp.lo),
                       hi=float(vp.hi))
-            out_k = sf.fused_stencil_iteration(*args, **kw)
+            out_k, same = twice_equal(
+                lambda: sf.fused_stencil_iteration(*args, **kw))
             out_p = sf.stencil_iteration_plain(*args, **kw)
             if device == "cuda":
                 check(out_k[0].is_cuda, "kernel output not on the card")
+            # the plan path on the graph ([V] and [E] rows) gives the
+            # standalone wrapper's bits
+            out_g = g.fused_iteration(x, grad, pre, zu, zv, 1.5, vp)
+            check(all(torch.equal(a.reshape(-1), b.reshape(-1))
+                      for a, b in zip(out_g, out_k)),
+                  f"stencil_fused {dtype} {vp.kind}: fused_iteration "
+                  f"differs from the standalone wrapper")
             err = max(max_err(k, p) for k, p in zip(out_k[:3], out_p[:3]))
             rel = max(max_err(k, p) / max(1.0, float(p.abs()))
                       for k, p in zip(out_k[3:], out_p[3:]))
@@ -304,10 +315,12 @@ def phase_stencil(device="cuda"):
                   f"err {err:.3g} > {tol}")
             check(rel <= tol, f"stencil_fused {dtype} {name}: num/den rel "
                   f"err {rel:.3g} > {tol}")
+            check(same, f"stencil_fused {dtype} {name}: two calls differ")
             print(f"[stencil_fused] {str(dtype)[6:]} {vp.kind:6s} "
                   f"pos={int(vp.positivity)} x/zu/zv max|kernel-plain| = "
                   f"{err:.3e}, num/den max|kernel-plain|/max(1,|plain|) = "
-                  f"{rel:.3e} (tol {tol:g})")
+                  f"{rel:.3e} (tol {tol:g}), two calls bit-equal, "
+                  f"fused_iteration bit-equal")
         if dtype == torch.float32 and device == "cuda":
             kw = dict(shifts=g.shifts, rho=1.5, vkind="l1", positivity=True,
                       lo=-np.inf, hi=np.inf)
@@ -319,14 +332,22 @@ def phase_stencil(device="cuda"):
 
             times["ms"] = cuda_ms(kern, 500)
             times["plain_ms"] = cuda_ms(plain, 200)
-            dev_k, _, _ = device_profile(kern, 200)
+            counts = {}
+            dev_k, per_k, _ = device_profile(kern, 200, counts)
             dev_p, per_p, _ = device_profile(plain, 200)
             times["device_us"], times["plain_device_us"] = dev_k, dev_p
+            times["host_us"] = host_us(kern)
+            # one kernel, launched once a call (the profiler may drop an
+            # event at the start of its window, never add one)
+            check(len(per_k) == 1 and 0 < max(counts.values()) <= 200,
+                  f"stencil_fused: not one launch a stage: {counts}")
             print(f"[stencil_fused] float32 {h}x{w} F={f} l1+pos, per call: "
                   f"kernel {times['ms'] * 1e3:.2f} us between CUDA events "
-                  f"({dev_k:.2f} us of device time, 2 kernels), plain "
-                  f"{times['plain_ms'] * 1e3:.2f} us ({dev_p:.2f} us of "
-                  f"device time, {len(per_p)} distinct kernels)")
+                  f"({dev_k:.2f} us of device time, one launch: "
+                  f"{counts}), {times['host_us']:.2f} us of host time "
+                  f"(10,000 calls); plain {times['plain_ms'] * 1e3:.2f} us "
+                  f"({dev_p:.2f} us of device time, {len(per_p)} distinct "
+                  f"kernels)")
     sys.stdout.flush()
     return errs, rel_errs, times
 
@@ -953,6 +974,14 @@ def reduced_inputs(kind, dtype, device):
     return args, kw, num_comp, rv_cap
 
 
+def twice_equal(fn):
+    """Calls ``fn`` twice on the same inputs; returns the first result and
+    whether the two are bit-equal (every tensor of the result)."""
+    import torch
+    a, b = fn(), fn()
+    return a, all(torch.equal(u, v) for u, v in zip(a, b))
+
+
 def phase_solve_fused(device="cuda"):
     """``solve_fused`` against its plain version: first on the EEG
     problem's first steepest cut (dense, rv_cap 4096, prepared as
@@ -972,7 +1001,9 @@ def phase_solve_fused(device="cuda"):
         args, rv = small_inputs("dense", cv1, rg1, dtype, device,
                                 sort_edges=True)
         kw = solve_kw(dtype, rv)
-        xk, zk, itk, _ = sfu.fused_pfdr_solve(*args, **kw)
+        (xk, zk, itk, _), same = twice_equal(
+            lambda: sfu.fused_pfdr_solve(*args, **kw))
+        check(same, f"solve_fused EEG dense shape {dtype}: two calls differ")
         xp, zp, itp, _ = sfu.solve_fused_plain(*args, **kw)
         err = max(max_err(xk, xp), max_err(zk, zp))
         errs[dtype] = max(errs[dtype], err)
@@ -1003,7 +1034,9 @@ def phase_solve_fused(device="cuda"):
                 kw.update(it_max=3000, dif_tol2=1e-14)
             else:
                 kw.update(it_max=300, dif_tol2=0.0)
-            xk, zk, itk, _ = sfu.fused_pfdr_solve(*args, **kw)
+            (xk, zk, itk, _), same = twice_equal(
+                lambda: sfu.fused_pfdr_solve(*args, **kw))
+            check(same, f"solve_fused {kind} {dtype}: two calls differ")
             xp, zp, itp, _ = sfu.solve_fused_plain(*args, **kw)
             err = max(max_err(xk, xp), max_err(zk, zp))
             errs[dtype] = max(errs[dtype], err)
@@ -1027,7 +1060,9 @@ def phase_solve_fused(device="cuda"):
         f64 = dtype == torch.float64
         args, kw = mesh_whole_inputs(dtype, device, MESH_WHOLE_DIF_TOL
                                      if f64 else 0.0, 3000 if f64 else 300)
-        xk, zk, itk, _ = sfu.fused_pfdr_solve(*args, **kw)
+        (xk, zk, itk, _), same = twice_equal(
+            lambda: sfu.fused_pfdr_solve(*args, **kw))
+        check(same, f"solve_fused mesh {dtype}: two calls differ")
         xp, zp, itp, _ = sfu.solve_fused_plain(*args, **kw)
         err = max(max_err(xk, xp), max_err(zk, zp))
         errs[dtype] = max(errs[dtype], err)
@@ -1040,15 +1075,119 @@ def phase_solve_fused(device="cuda"):
         line = (f"[solve_fused] {name} mesh BandedGraphD1 (the "
                 f"pfdr-mesh-banded path's call) rv={kw['rv']} "
                 f"e={args[8].shape[0]} it={int(itk)} (plain {int(itp)}) "
-                f"max|kernel-plain| = {err:.3e} (tol {tol:g})")
+                f"max|kernel-plain| = {err:.3e} (tol {tol:g}), two calls "
+                f"bit-equal")
         if not f64 and device == "cuda":
-            ms = cuda_ms(lambda: sfu.fused_pfdr_solve(*args, **kw), 3)
-            plain_ms = cuda_ms(lambda: sfu.solve_fused_plain(*args, **kw), 1)
-            main.update(mesh_ms=ms, mesh_plain_ms=plain_ms, mesh_args=args)
-            line += (f"; 300 iterations: kernel {ms:.3f} ms, plain "
-                     f"{plain_ms:.1f} ms")
+            t = mesh_solve_times(sfu, args, kw)
+            main.update(t, mesh_args=args)
+            line += (f"; 300 iterations: kernel {t['mesh_ms_300']:.3f} ms "
+                     f"({t['mesh_ms_300'] * 1e3 / 300:.2f} us an "
+                     f"iteration), plain {t['mesh_plain_ms_300']:.1f} ms; "
+                     f"the path's 3000: kernel {t['mesh_ms']:.3f} ms "
+                     f"({t['mesh_ms'] * 1e3 / 3000:.2f} us an iteration), "
+                     f"plain {t['mesh_plain_ms']:.1f} ms; the launch plan "
+                     f"{t['mesh_plan_ms']:.3f} ms of host time a call, "
+                     f"inside these times")
         print(line, flush=True)
     return errs, main
+
+
+def plan_ms(sfu, args, reps=20):
+    """Host milliseconds of ``solve_fused``'s launch plan on the call's
+    edge list (``make_plan``, built on every call; the card synchronised
+    before and after): the mean of ``reps`` builds."""
+    import torch
+    op_kind, op, eu, ev = args[0], args[1], args[8], args[9]
+    n_rows = op.shape[0] if op_kind == "dense" else 0
+    build = functools.partial(sfu.make_plan, op_kind, eu, ev,
+                              args[5].shape[0], n_rows, args[5].dtype)
+    build()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        build()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / reps
+
+
+def mesh_solve_times(sfu, args, kw):
+    """The mesh call's kernel and plain times (ms a launch, CUDA events,
+    the launch plan's host time included) at 300 float32 iterations and at
+    the path's 3000, and the plan's host time alone."""
+    out = {"mesh_plan_ms": plan_ms(sfu, args)}
+    for it_max, tag in ((300, "_300"), (3000, "")):
+        k = dict(kw, it_max=it_max, dif_tol2=0.0)
+        out["mesh_ms" + tag] = cuda_ms(
+            lambda: sfu.fused_pfdr_solve(*args, **k), 3)
+        out["mesh_plain_ms" + tag] = cuda_ms(
+            lambda: sfu.solve_fused_plain(*args, **k), 1)
+    return out
+
+
+# a banded grid of LARGE_SIDE x LARGE_SIDE vertices: in float64 a block's
+# iterate and forward values no longer fit in its shared memory (132 SMs)
+LARGE_SIDE = 1448
+
+
+def phase_solve_fused_large(device="cuda"):
+    """:func:`solve_fused_large`, then the memory it cached handed back to
+    the card (the halo phase's ranks share it)."""
+    import torch
+    err = solve_fused_large(device)
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    return err
+
+
+def solve_fused_large(device):
+    """The unmonitored whole solve of ``pfdr_quadratic_d1`` on a
+    ``BandedGraphD1`` grid of ``LARGE_SIDE`` squared vertices (TV
+    denoising of ``denoise_problem``'s kind at that side, float64): the
+    launch reads the blocks' iterate and forward values from global memory.
+    Held against the plain version on the same inputs: equal iteration
+    counts, the iterate within F64_TOL, two solves bit-equal, each one
+    ``solve_fused`` launch."""
+    import torch
+    from cp_pfdr_graph_d1_tpu_torch import (BandedGraphD1, IdentityOp,
+                                            PFDROptions, VertexProx)
+    from cp_pfdr_graph_d1_tpu_torch.config import Lipsch
+    from cp_pfdr_graph_d1_tpu_torch.ops import solve_fused as sfu
+    from cp_pfdr_graph_d1_tpu_torch.solvers import pfdr_quadratic as pq
+    dtype, side = torch.float64, LARGE_SIDE
+    idx = np.arange(side * side).reshape(side, side)
+    eu = np.concatenate([idx[:, :-1].ravel(), idx[:-1, :].ravel()])
+    ev = np.concatenate([idx[:, 1:].ravel(), idx[1:, :].ravel()])
+    g = BandedGraphD1.create(eu.astype(np.int32), ev.astype(np.int32), 0.35,
+                             num_vertices=side * side, dtype=dtype,
+                             device=device)
+    obs = torch.as_tensor(denoise_problem(side), dtype=dtype, device=device)
+    op, opt = IdentityOp(), PFDROptions(rho=1.5, dif_tol=1e-3, it_max=1000)
+    plan = sfu.make_plan("diag", g.eu, g.ev, g.num_vertices, 0, dtype)
+    check(not plan.xs_in_smem, f"large solve: {plan.nb_max} vertices a "
+          f"block fit in shared memory; the case needs a larger side")
+    n0 = sfu.fused_pfdr_solve.launches
+    r1 = pq.pfdr_quadratic_d1(op, obs, g, opt=opt)
+    r2 = pq.pfdr_quadratic_d1(op, obs, g, opt=opt)
+    check(sfu.fused_pfdr_solve.launches == n0 + 2,
+          "large solve: not one solve_fused launch a solve")
+    check(torch.equal(r1.x, r2.x), "large solve: two solves differ")
+    pre = pq.initial_precondition(op, obs, g, None, opt.rho, None,
+                                  Lipsch.SCAL)
+    x0 = torch.zeros(g.num_vertices, dtype=dtype, device=device)
+    args, kw = pq.whole_solve_inputs(op, obs, g, VertexProx(), pre, x0,
+                                     *g.gather_endpoints(x0), opt, "diag")
+    xp, _, itp, _ = sfu.solve_fused_plain(*args, **kw)
+    err = max_err(r1.x, xp)
+    check(int(r1.it) == int(itp), f"large solve: it {int(r1.it)} vs plain "
+          f"{int(itp)}")
+    check(err <= F64_TOL, f"large solve: err {err:.3g} > {F64_TOL}")
+    print(f"[solve_fused] float64 diag {side}x{side} BandedGraphD1 (V="
+          f"{g.num_vertices}, e={g.num_edges}; {plan.nb_max} vertices a "
+          f"block, iterate and forward values in global memory) through "
+          f"pfdr_quadratic_d1: it={int(r1.it)} (plain {int(itp)}) "
+          f"max|kernel-plain| = {err:.3e} (tol {F64_TOL:g}), two solves "
+          f"bit-equal", flush=True)
+    return err
 
 
 # the float64 mesh whole solve against its plain version stops on this
@@ -1114,10 +1253,10 @@ def crossover(device="cuda"):
     return table
 
 
-def denoise_problem():
+def denoise_problem(side=SIDE_524K):
     """The 524k-vertex TV denoising problem of ``bench.py:366-386``: twelve
-    constant rectangles plus Gaussian noise (seed 5)."""
-    side = SIDE_524K
+    constant rectangles plus Gaussian noise (seed 5), on a ``side`` x
+    ``side`` field."""
     r = np.random.default_rng(5)
     x_true = np.zeros((side, side), np.float32)
     for _ in range(12):
@@ -3079,6 +3218,10 @@ def phase_pfdr_halo(ref, p2_ref=None, side=HALO_SIDE, iters=HALO_ITERS,
     sizes = tuple(n for n in shards if n > 1)
     shared = []
     if sizes or with_p2:
+        if device == "cuda":
+            # the spawned ranks share the card: leave them what this
+            # process holds cached and does not use
+            torch.cuda.empty_cache()
         shared = spawn_ranks(shared_card_ranks, max(sizes + (P2_SHARDS,)),
                              side, iters, HALO_PROFILE_ITERS, device, sizes,
                              with_p2, device=device)
@@ -3538,6 +3681,8 @@ def main():
     mc_err, mc_t = phase_mincut()
     cc_t = phase_components()
     sf_err, sfm = phase_solve_fused()
+    sf_err[torch.float64] = max(sf_err[torch.float64],
+                                phase_solve_fused_large())
     xover = crossover()
     sx_err, sx_t = phase_stencil_simplex()
     cps_cut, cps_comp = phase_cp_simplex_kernels()
@@ -3622,7 +3767,7 @@ def main():
                              cc["rounds"] * (4 * f2 + 4) * v5),
         "solve_fused": reduced_solve_work(sfm["mesh_args"][5].shape[0],
                                           sfm["mesh_args"][8].shape[0],
-                                          sfm["mesh_args"][1].shape[0], 300),
+                                          sfm["mesh_args"][1].shape[0], 3000),
         # inputs p, q, ga, ga_proj, prev (K planes), la_f, 7 F K edge
         # planes; outputs p, prev, zu, zv.  Operations per (vertex, label):
         # 1 + 2F forward values (~6), 2F pair proxes (~16) and weighted
@@ -3671,8 +3816,11 @@ def main():
                  torch.float32], max_abs_err_f64=st_err[torch.float64],
              sums_max_rel_err=st_rel[torch.float32],
              sums_max_rel_err_f64=st_rel[torch.float64], ms=st_t["ms"],
-             plain_ms=st_t["plain_ms"],
-             shape=f"{V_SIDE}x{V_SIDE} F=2, one PFDR stage"),
+             plain_ms=st_t["plain_ms"], device_us=st_t["device_us"],
+             plain_device_us=st_t["plain_device_us"],
+             host_us_per_call=st_t["host_us"],
+             shape=f"{V_SIDE}x{V_SIDE} F=2, one PFDR stage (one launch: "
+                   f"a thread a vertex, the sums ended by the last block)"),
         dict(name="solve_small", source="solve_small.cu",
              replaces="solve_small.py:185", max_abs_err=ss_err[
                  torch.float32], max_abs_err_f64=ss_err[torch.float64],
@@ -3718,11 +3866,15 @@ def main():
              mesh_max_abs_err_f64=sfm["mesh_err_float64"],
              mesh_iterations_f64=sfm["mesh_it_float64"],
              ms=sfm["mesh_ms"], plain_ms=sfm["mesh_plain_ms"],
+             us_per_iteration=sfm["mesh_ms"] * 1e3 / 3000,
+             plan_host_ms=sfm["mesh_plan_ms"],
+             ms_300=sfm["mesh_ms_300"], plain_ms_300=sfm["mesh_plain_ms_300"],
              eeg_dense_ms=sfm["ms"], eeg_dense_plain_ms=sfm["plain_ms"],
              shape=f"mesh BandedGraphD1, V={sfm['mesh_args'][5].shape[0]} "
                    f"e={sfm['mesh_args'][8].shape[0]} N="
                    f"{sfm['mesh_args'][1].shape[0]} (the pfdr-mesh-banded "
-                   f"path's call), 300 iterations; eeg_dense_ms: dense, "
+                   f"path's call), 3000 iterations (the path's launch; "
+                   f"ms_300: 300 iterations); eeg_dense_ms: dense, "
                    f"rv={sfm['rv']} rv_cap={sfm['args'][5].shape[0]} (the "
                    f"EEG host cut's first reduced problem, which the route "
                    f"now sends to solve_small)"),
@@ -3845,11 +3997,58 @@ def compare_timings(device="cuda"):
     kernel takes; phase_mincut's cuts), and ``banded_gather`` /
     ``banded_scatter`` per call on the mesh's float32 [V] field beside
     ``index_select`` and two ``index_add_`` calls, by CUDA events (200
-    calls) and by the host clock (10,000 calls)."""
+    calls) and by the host clock (10,000 calls).  First:
+    ``solve_fused``'s mesh call (float32, ms a launch and us an iteration
+    at 300 and at the path's 3000 iterations, by CUDA events and as device
+    time, and the host time of its launch plan), ``stencil_fused`` at 140 x
+    140 (float32, l1 with positivity: device time, CUDA events over 500
+    calls, host clock over 10,000 calls, standalone and through
+    ``StencilGraphD1.fused_iteration``) and ``[pfdr]`` in us an iteration
+    (3000 float32 iterations after a 300-iteration run)."""
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     phase_env()
     phase_build()
     import torch
+    from cp_pfdr_graph_d1_tpu_torch.ops import solve_fused as sfu
+    from cp_pfdr_graph_d1_tpu_torch.ops import stencil_fused as sf
+    args, kw = mesh_whole_inputs(torch.float32, device, 0.0, 3000)
+    plan = (f"{plan_ms(sfu, args):.3f} ms" if hasattr(sfu, "make_plan")
+            else "not timed apart (built inside the call)")
+    for it_max in (300, 3000):
+        k = dict(kw, it_max=it_max)
+        call = lambda: sfu.fused_pfdr_solve(*args, **k)  # noqa
+        ms = cuda_ms(call, 3)
+        dev = device_profile(call, 3)[0] / 1e3
+        print(f"[compare] solve_fused float32 mesh call, {it_max} "
+              f"iterations: {ms:.3f} ms a launch, {ms * 1e3 / it_max:.2f} "
+              f"us an iteration (CUDA events, the launch plan included); "
+              f"{dev:.3f} ms of device time ({dev * 1e3 / it_max:.2f} us "
+              f"an iteration); launch plan {plan} of host time a call",
+              flush=True)
+    g, pre, x, grad, zu, zv = stencil_setup(torch.float32, device)
+    h, w = g.field_shape
+    f = len(g.shifts)
+    sargs = (x.reshape(h, w), grad.reshape(h, w), pre.ga.reshape(h, w),
+             pre.th_l1.reshape(h, w)) + tuple(
+        a.reshape(f, h, w) for a in (zu, zv, pre.wu, pre.wv, pre.w_d1u,
+                                     pre.w_d1v, pre.th_d1))
+    skw = dict(shifts=g.shifts, rho=1.5, vkind="l1", positivity=True,
+               lo=-np.inf, hi=np.inf)
+    vp = vertex_proxes()[1]
+    for name, step in (
+            ("standalone", lambda: sf.fused_stencil_iteration(*sargs, **skw)),
+            ("fused_iteration", lambda: g.fused_iteration(
+                x, grad, pre, zu, zv, 1.5, vp))):
+        counts = {}
+        dev = device_profile(step, 200, counts)[0]
+        print(f"[compare] stencil_fused float32 {h}x{w} F={f} l1+pos "
+              f"({name}): {dev:.2f} us of device time ({counts}), "
+              f"{cuda_ms(step, 500) * 1e3:.2f} us per call (CUDA events), "
+              f"{host_us(step):.2f} us of host time per call (10,000 "
+              f"calls)", flush=True)
+    phase_pfdr(device, 300)
+    us = phase_pfdr(device)
+    print(f"[compare] pfdr float32: {us:.2f} us an iteration", flush=True)
     from cp_pfdr_graph_d1_tpu_torch.ops import banded
     from cp_pfdr_graph_d1_tpu_torch.ops import banded_fused as bf
     from cp_pfdr_graph_d1_tpu_torch.ops import circulant_fused as cf

@@ -6,6 +6,7 @@
 // (ops/stencil_fused.py:_kernel, ops/solve_small.py:_kernel).
 #pragma once
 
+#include <cuda/atomic>
 #include <cuda_runtime.h>
 
 namespace cp_pfdr {
@@ -245,12 +246,14 @@ __device__ __forceinline__ void block_sum_k(T (&v)[K], T *scratch, T &out) {
 
 // Ends a launch's two sums (a, b) in the launch itself.  Call with every
 // thread of the block, after a block reduction that left the block's sums
-// in thread 0.  Thread 0 writes them to partials[2 blockIdx.x ...]; after a
-// fence, an integer ticket elects the last block to finish, which adds all
-// blocks' partials in block order (thread i the blocks i, i + blockDim.x,
-// ..., then block_sum2), writes sums[0..1] and resets the ticket to 0 for
-// the next launch.  No float atomics: the sums are the same in every run.
-// One ticket serves one launch at a time.
+// in thread 0.  Thread 0 writes them to partials[2 blockIdx.x ...], then
+// takes an integer ticket with one acquire-release atomic (it publishes the
+// partials; the barrier after it passes what the last block's thread 0
+// acquired on to its other threads, as a semaphore does): the last block
+// to finish adds all blocks' partials in block order (thread i the blocks
+// i, i + blockDim.x, ..., then block_sum2), writes sums[0..1] and resets
+// the ticket to 0 for the next launch.  No float atomics: the sums are the
+// same in every run.  One ticket serves one launch at a time.
 template <typename T>
 __device__ __forceinline__ void last_block_sums(T a, T b, T *partials,
                                                 int *ticket, T *sums,
@@ -259,12 +262,12 @@ __device__ __forceinline__ void last_block_sums(T a, T b, T *partials,
   if (threadIdx.x == 0) {
     partials[2 * blockIdx.x] = a;
     partials[2 * blockIdx.x + 1] = b;
-    __threadfence();
-    is_last = atomicAdd(ticket, 1) == static_cast<int>(gridDim.x) - 1;
+    cuda::atomic_ref<int, cuda::thread_scope_device> t(*ticket);
+    is_last = t.fetch_add(1, cuda::memory_order_acq_rel) ==
+              static_cast<int>(gridDim.x) - 1;
   }
   __syncthreads();
   if (!is_last) return;
-  __threadfence();
   T s = T(0), t = T(0);
   for (int k = threadIdx.x; k < static_cast<int>(gridDim.x);
        k += blockDim.x) {

@@ -5,20 +5,28 @@ Counterpart of ``cp_pfdr_graph_d1_tpu.ops.stencil_fused``
 (``fused_stencil_iteration``).  :func:`fused_stencil_iteration` launches the
 CUDA kernel for tensors on a CUDA device and runs
 :func:`stencil_iteration_plain` for tensors on the CPU; there is no other
-fallback.  Each launch adds one to ``fused_stencil_iteration.launches``.
+fallback.  The kernel runs a thread a vertex in one launch
+(:func:`blocks`).  A launch goes through a plan (shifts, partials and the
+ticket that elects the block ending the sums), checked once and kept by the
+caller: on the graph (:meth:`..stencil.StencilGraphD1.fused_iteration`,
+``graph._stage_plans``) or, for the standalone wrapper, in this module.
+Each launch adds one to ``fused_stencil_iteration.launches``.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Tuple
 
 import torch
 
-from .. import _build
+from . import banded
+from .banded_fused import run_stage, stage_key
 from .prox import vertex_prox_plain
 
-# must equal kMaxFamilies in csrc/stencil_fused.cu
+# kMaxFamilies and kVertexBlock of the CUDA sources
 MAX_FAMILIES = 16
+VERTEX_BLOCK = 128
 
 _VKIND = {"none": 0, "l1": 1, "bounds": 2}
 _FIELDS = ("x", "grad", "ga", "th_l1", "zu", "zv", "wu", "wv", "w_d1u",
@@ -60,37 +68,72 @@ def stencil_iteration_plain(x, grad, ga, th_l1, zu, zv, wu, wv, w_d1u,
             (delta * delta).sum(), (xn * xn).sum())
 
 
+def blocks(h: int, w: int) -> int:
+    """Blocks of a launch on an (H, W) field: thread ``t`` of block ``b``
+    takes the cell ``b VERTEX_BLOCK + t`` (row-major) when it lies in the
+    field; 154 blocks at 140 x 140, more than the H100's 132 SMs."""
+    return -(-h * w // VERTEX_BLOCK)
+
+
+class _Plan(ctypes.Structure):
+    """``StencilPlan`` of ``csrc/stencil_fused.cu``."""
+    _fields_ = ([("partials", ctypes.c_void_p), ("ticket", ctypes.c_void_p)]
+                + [(n, ctypes.c_int) for n in ("h", "w", "nf", "device")]
+                + [("dy", ctypes.c_int * MAX_FAMILIES),
+                   ("dx", ctypes.c_int * MAX_FAMILIES)]
+                + [(n, ctypes.c_double) for n in ("rho", "lo", "hi")]
+                + [("vkind", ctypes.c_int), ("positivity", ctypes.c_int)])
+
+
+@functools.cache
 def _lib():
-    lib = _build.cuda_kernels()
-    if not getattr(lib, "_cp_stencil_declared", False):
-        ptr, i, d = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
-        for name in ("cp_stencil_fused_f32", "cp_stencil_fused_f64"):
-            fn = getattr(lib, name)
-            fn.restype = i
-            fn.argtypes = ([ptr] * 16 + [i, i, i, ptr, d, i, i, d, d, ptr])
-        lib.cp_stencil_partials_len.restype = i
-        lib.cp_stencil_partials_len.argtypes = [i, i]
-        lib.cp_stencil_max_families.restype = i
-        lib.cp_stencil_max_families.argtypes = []
-        if lib.cp_stencil_max_families() != MAX_FAMILIES:
-            raise RuntimeError("MAX_FAMILIES disagrees with the CUDA source")
-        lib._cp_stencil_declared = True
+    """The kernels' library (:func:`.banded._lib`) with the entries
+    declared and the constants mirrored here checked against the CUDA
+    source."""
+    lib = banded._lib()
+    ptr = ctypes.c_void_p
+    for t in ("f32", "f64"):
+        fn = getattr(lib, f"cp_stencil_fused_{t}")
+        fn.restype = ctypes.c_int
+        fn.argtypes = [ptr] * 16
+    lib.cp_stencil_plan_size.restype = ctypes.c_int
+    lib.cp_stencil_plan_size.argtypes = []
+    lib.cp_stencil_shape.restype = None
+    lib.cp_stencil_shape.argtypes = [ptr]
+    shape = (ctypes.c_int * 2)()
+    lib.cp_stencil_shape(shape)
+    if (lib.cp_stencil_plan_size() != ctypes.sizeof(_Plan)
+            or tuple(shape) != (MAX_FAMILIES, VERTEX_BLOCK)):
+        raise RuntimeError("ops/stencil_fused.py disagrees with "
+                           "csrc/stencil_fused.cu")
     return lib
 
 
-def _check(arrays, shifts, vkind):
+def _check(arrays, shifts, vkind, field_shape=None):
+    """Raises on stage fields the kernel does not take: [H, W] vertex
+    fields and [F, H, W] edge fields (or, given ``field_shape`` (H, W), the
+    same flattened: [V] and [F V]), one float type on one device,
+    contiguous."""
     x = arrays[0]
-    if x.ndim != 2:
-        raise ValueError(f"x must be [H, W], got {tuple(x.shape)}")
-    h, w = x.shape
+    if field_shape is None:
+        if x.ndim != 2:
+            raise ValueError(f"x must be [H, W], got {tuple(x.shape)}")
+        field_shape = tuple(x.shape)
+    h, w = field_shape
     f = len(shifts)
     if not 1 <= f <= MAX_FAMILIES:
         raise ValueError(f"{f} shift families; the kernel takes 1.."
                          f"{MAX_FAMILIES}")
     if vkind not in _VKIND:
         raise ValueError(f"unknown vertex prox {vkind!r}")
+    if x.dtype not in (torch.float32, torch.float64):
+        raise ValueError(f"the kernel takes float32 or float64, not {x.dtype}")
     for name, a in zip(_FIELDS, arrays):
-        want = (h, w) if name in ("x", "grad", "ga", "th_l1") else (f, h, w)
+        vertex = name in ("x", "grad", "ga", "th_l1")
+        if x.ndim == 1:
+            want = (h * w,) if vertex else (f * h * w,)
+        else:
+            want = (h, w) if vertex else (f, h, w)
         if tuple(a.shape) != want:
             raise ValueError(f"{name} has shape {tuple(a.shape)}, expected "
                              f"{want}")
@@ -99,8 +142,56 @@ def _check(arrays, shifts, vkind):
                              f"{x.dtype} on {x.device}")
         if not a.is_contiguous():
             raise ValueError(f"{name} is not contiguous")
-    if x.dtype not in (torch.float32, torch.float64):
-        raise ValueError(f"the kernel takes float32 or float64, not {x.dtype}")
+
+
+def _make_plan(plans, key, field_shape, shifts, fields, rho, vkind,
+               positivity, lo, hi):
+    """Checks the fields once for ``key`` and prepares the launch:
+    ``(C function, plan address, device index, the plan and its
+    buffers)``, kept in ``plans``."""
+    _check(fields, shifts, vkind, field_shape)
+    lib = _lib()
+    x = fields[0]
+    h, w = field_shape
+    partials = x.new_empty(2 * blocks(h, w))
+    ticket = torch.zeros(1, dtype=torch.int32, device=x.device)
+    f = len(shifts)
+    pad = [0] * (MAX_FAMILIES - f)
+    plan = _Plan(partials.data_ptr(), ticket.data_ptr(), h, w, f,
+                 x.device.index,
+                 (ctypes.c_int * MAX_FAMILIES)(*[s[0] for s in shifts], *pad),
+                 (ctypes.c_int * MAX_FAMILIES)(*[s[1] for s in shifts], *pad),
+                 float(rho), float(lo), float(hi), _VKIND[vkind],
+                 int(positivity))
+    sfx = "f32" if x.dtype == torch.float32 else "f64"
+    entry = (getattr(lib, f"cp_stencil_fused_{sfx}"), ctypes.addressof(plan),
+             x.device.index, (plan, partials, ticket))
+    plans[key] = entry
+    return entry
+
+
+def fused_stage(plans, field_shape, shifts, fields, *, rho: float,
+                vkind: str, positivity: bool, lo: float, hi: float):
+    """The kernel's stage on CUDA ``fields`` (as :func:`fused_stencil_iteration`
+    takes them, or flattened: [V] and [F V]) through the plan kept in the
+    dict ``plans``: ``(x_new [V], zu_new, zv_new [F V], num, den)``.  The
+    checks run once per (fields' dtypes, shapes and devices, shifts, stage
+    constants).  Two streams must not run a stage through one plan at once:
+    they would share its ticket and partials."""
+    key = (stage_key(fields, rho, vkind, positivity, lo, hi), shifts)
+    entry = plans.get(key)
+    if entry is None:
+        entry = _make_plan(plans, key, field_shape, shifts, fields, rho,
+                           vkind, positivity, lo, hi)
+    fn, plan, index, _ = entry
+    nv = field_shape[0] * field_shape[1]
+    out = run_stage(fn, plan, index, nv, len(shifts) * nv, fields,
+                    "stencil_fused")
+    fused_stencil_iteration.launches += 1
+    return out
+
+
+_plans: dict = {}
 
 
 def fused_stencil_iteration(x, grad, ga, th_l1, zu, zv, wu, wv, w_d1u,
@@ -125,30 +216,14 @@ def fused_stencil_iteration(x, grad, ga, th_l1, zu, zv, wu, wv, w_d1u,
         return stencil_iteration_plain(
             *arrays, shifts=shifts, rho=rho, vkind=vkind,
             positivity=positivity, lo=lo, hi=hi)
-    _check(arrays, shifts, vkind)
-    lib = _lib()
-    h, w = x.shape
-    xo = torch.empty_like(x)
-    zuo = torch.empty_like(zu)
-    zvo = torch.empty_like(zv)
-    partials = torch.empty(lib.cp_stencil_partials_len(h, w),
-                           dtype=x.dtype, device=x.device)
-    sums = torch.empty(2, dtype=x.dtype, device=x.device)
-    flat = [int(v) for dydx in shifts for v in dydx]
-    shifts_c = (ctypes.c_int * len(flat))(*flat)
-    fn = (lib.cp_stencil_fused_f32 if x.dtype == torch.float32
-          else lib.cp_stencil_fused_f64)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = fn(*[a.data_ptr() for a in arrays], xo.data_ptr(),
-                zuo.data_ptr(), zvo.data_ptr(), partials.data_ptr(),
-                sums.data_ptr(), h, w, len(shifts), shifts_c, float(rho),
-                _VKIND[vkind], int(positivity), float(lo), float(hi),
-                stream)
-    if rc != 0:
-        raise RuntimeError(f"stencil_fused launch failed (CUDA error {rc})")
-    fused_stencil_iteration.launches += 1
-    return xo, zuo, zvo, sums[0], sums[1]
+    if x.ndim != 2:
+        raise ValueError(f"x must be [H, W], got {tuple(x.shape)}")
+    shifts = tuple((int(dy), int(dx)) for dy, dx in shifts)
+    xn, zun, zvn, num, den = fused_stage(
+        _plans, tuple(x.shape), shifts, arrays, rho=rho, vkind=vkind,
+        positivity=positivity, lo=lo, hi=hi)
+    return (xn.view(x.shape), zun.view(zu.shape), zvn.view(zv.shape), num,
+            den)
 
 
 fused_stencil_iteration.launches = 0

@@ -18,7 +18,7 @@ import torch
 
 from .config import numpy_dtype
 from .graph import GraphD1
-from .ops.stencil_fused import fused_stencil_iteration
+from .ops.stencil_fused import fused_stage, stencil_iteration_plain
 from .ops.stencil_fused_simplex import fused_stencil_simplex_iteration
 
 
@@ -38,6 +38,8 @@ class StencilGraphD1(GraphD1):
         self._coo = None
         self._host_coo = None
         self._incidence = None
+        # stage_key -> stencil_fused's launch plan (ops/stencil_fused.py)
+        self._stage_plans = {}
 
     @classmethod
     def create(cls, field_shape, shift_weights, wrap=(False, False),
@@ -137,24 +139,23 @@ class StencilGraphD1(GraphD1):
     # -- fused iteration ------------------------------------------------------
 
     def fused_iteration(self, x, grad, pre, zu, zv, rho: float, vprox):
-        """One fused edge+vertex PFDR step (see
-        :func:`..ops.stencil_fused.fused_stencil_iteration`)."""
+        """One fused edge+vertex PFDR step on [V] vertex and [E] edge rows:
+        ``(x_new [V], zu_new, zv_new [E], num, den)`` (see
+        :func:`..ops.stencil_fused.fused_stencil_iteration`).  On CUDA
+        tensors it launches through the plan kept in ``_stage_plans``."""
+        fields = (x, grad, pre.ga, pre.th_l1, zu, zv, pre.wu, pre.wv,
+                  pre.w_d1u, pre.w_d1v, pre.th_d1)
+        kw = dict(rho=rho, vkind=vprox.kind, positivity=vprox.positivity,
+                  lo=float(vprox.lo), hi=float(vprox.hi))
+        if x.is_cuda:
+            return fused_stage(self._stage_plans, self.field_shape,
+                               self.shifts, fields, **kw)
         h, w = self.field_shape
         f = len(self.shifts)
-
-        def rv(a):
-            return a.reshape(h, w)
-
-        def re(a):
-            return a.reshape(f, h, w)
-
-        xn, zun, zvn, num, den = fused_stencil_iteration(
-            rv(x), rv(grad), rv(pre.ga), rv(pre.th_l1),
-            re(zu), re(zv), re(pre.wu), re(pre.wv),
-            re(pre.w_d1u), re(pre.w_d1v), re(pre.th_d1),
-            shifts=self.shifts, rho=rho, vkind=vprox.kind,
-            positivity=vprox.positivity, lo=float(vprox.lo),
-            hi=float(vprox.hi))
+        xn, zun, zvn, num, den = stencil_iteration_plain(
+            *(a.reshape(h, w) for a in fields[:4]),
+            *(a.reshape(f, h, w) for a in fields[4:]), shifts=self.shifts,
+            **kw)
         e = self.num_edges
         return xn.reshape(-1), zun.reshape(e), zvn.reshape(e), num, den
 

@@ -115,3 +115,109 @@ def test_fused_iteration_plain_matches_pallas(vprox, wrap, f):
                                rtol=0, atol=1e-13)
     np.testing.assert_allclose(float(tnum), float(num), rtol=1e-13)
     np.testing.assert_allclose(float(tden), float(den), rtol=1e-13)
+
+
+# -- the kernel's launch: a thread a vertex ---------------------------------
+
+SHIFT_CASES = {1: ((1, 0),), 2: ((0, 1), (1, 0)),
+               4: ((0, 1), (1, 0), (1, 1), (1, -1)),
+               "long": ((0, 1), (2, -1), (0, 9))}
+
+
+def pair_prox(pu, pv, zu, zv, xu, xv, wdu, wdv, th, rho):
+    """``pair_prox_relax`` of ``csrc/pfdr_common.cuh`` on scalars."""
+    au, av = pu - zu, pv - zv
+    avg, diff = wdu * au + wdv * av, au - av
+    shrunk = np.sign(diff) * max(abs(diff) - th, 0.0)
+    return (zu + rho * ((avg + wdv * shrunk) - xu),
+            zv + rho * ((avg - wdu * shrunk) - xv))
+
+
+def vertex_schedule(fields, shifts, h, w, rho, vprox):
+    """A numpy copy of the kernel's schedule, written from
+    ``csrc/stencil_fused.cu`` (it checks the launch shape and the
+    schedule's arithmetic, not the CUDA code, which ``chip_smoke.py`` holds
+    against the plain version on the card): ``(x_new, zu, zv, visits)`` where
+    ``visits`` counts the threads of the launch (``blocks(h, w)`` blocks of
+    ``VERTEX_BLOCK``) that took each cell.  A thread computes, family by
+    family, its cell's own edge (tail at the cell) and writes it, adds wu
+    zu, then recomputes the edge whose head the cell is from its tail's
+    values (wrapped) and adds wv zv."""
+    from cp_pfdr_graph_d1_tpu_torch.ops.prox import vertex_prox_plain
+    f = len(shifts)
+    x, grad, ga, th_l1 = (a.ravel() for a in fields[:4])
+    zu, zv, wu, wv, wdu, wdv, thd = (a.reshape(f, h * w) for a in fields[4:])
+    p = 2.0 * x - ga * grad
+    acc = np.zeros(h * w)
+    zuo, zvo = np.full((f, h * w), np.nan), np.full((f, h * w), np.nan)
+    visits = np.zeros(h * w, np.int64)
+    nt = stencil_fused.VERTEX_BLOCK
+    for b in range(stencil_fused.blocks(h, w)):
+        for t in range(nt):
+            c = b * nt + t
+            if c >= h * w:
+                continue
+            visits[c] += 1
+            i, j = divmod(c, w)
+            for k, (dy, dx) in enumerate(shifts):
+                v = (i + dy) % h * w + (j + dx) % w
+                zun, zvn = pair_prox(p[c], p[v], zu[k, c], zv[k, c], x[c],
+                                     x[v], wdu[k, c], wdv[k, c], thd[k, c],
+                                     rho)
+                zuo[k, c], zvo[k, c] = zun, zvn
+                acc[c] += wu[k, c] * zun
+                u = (i - dy) % h * w + (j - dx) % w
+                _, zvn = pair_prox(p[u], p[c], zu[k, u], zv[k, u], x[u],
+                                   x[c], wdu[k, u], wdv[k, u], thd[k, u],
+                                   rho)
+                acc[c] += wv[k, u] * zvn
+    xn = vertex_prox_plain(torch.from_numpy(acc), torch.from_numpy(th_l1),
+                           vprox.kind, vprox.positivity, vprox.lo,
+                           vprox.hi).numpy()
+    return xn, zuo, zvo, visits
+
+
+def stage_state(h, w, shifts, wrap, seed):
+    """A stencil graph and random stage fields on it (float64, CPU)."""
+    _, tg = make_pair(h, w, shifts, wrap, seed)
+    r = np.random.default_rng(seed + 1)
+    f, v = len(shifts), h * w
+    live = tg.la_d1.numpy() > 0
+    x, grad = r.normal(size=(2, v))
+    ga, th_l1 = r.uniform(0.1, 1.0, (2, v))
+    zu, zv = r.normal(size=(2, f * v))
+    wu, wv, th_d1 = r.uniform(0.05, 0.5, (3, f * v)) * live
+    w_d1u = np.where(live, r.uniform(0.05, 0.95, f * v), 0.5)
+    return tg, (x, grad, ga, th_l1, zu, zv, wu, wv, w_d1u, 1.0 - w_d1u,
+                th_d1)
+
+
+@pytest.mark.parametrize("hw", [(13, 21), (9, 30)], ids=["13x21", "9x30"])
+@pytest.mark.parametrize("wrap", [(False, False), (True, False)],
+                         ids=["nowrap", "wrapy"])
+@pytest.mark.parametrize("f", [1, 2, 4, "long"])
+def test_launch_covers_every_cell_once(f, wrap, hw):
+    """The launch (``blocks``, ``VERTEX_BLOCK``) takes every cell of a field
+    whose size is not a multiple of the block exactly once, and the
+    kernel's schedule (own edge, then the incoming edge recomputed from its
+    wrapped tail) gives the plain version's stage, float64."""
+    h, w = hw
+    shifts = SHIFT_CASES[f]
+    _, fields = stage_state(h, w, shifts, wrap, seed=3)
+    assert (h * w) % stencil_fused.VERTEX_BLOCK != 0
+    vp = VertexProx(kind="l1")
+    xn, zun, zvn, visits = vertex_schedule(fields, shifts, h, w, 1.3, vp)
+    assert visits.min() == visits.max() == 1
+    t = torch.from_numpy
+    fl = len(shifts)
+    want = stencil_fused.stencil_iteration_plain(
+        *(t(a).reshape(h, w) for a in fields[:4]),
+        *(t(a).reshape(fl, h, w) for a in fields[4:]), shifts=shifts,
+        rho=1.3, vkind=vp.kind, positivity=vp.positivity, lo=vp.lo,
+        hi=vp.hi)
+    np.testing.assert_allclose(xn, want[0].numpy().ravel(), rtol=0,
+                               atol=1e-13)
+    np.testing.assert_allclose(zun, want[1].numpy().reshape(fl, -1), rtol=0,
+                               atol=1e-13)
+    np.testing.assert_allclose(zvn, want[2].numpy().reshape(fl, -1), rtol=0,
+                               atol=1e-13)
