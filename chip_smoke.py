@@ -25,7 +25,10 @@ It imports nothing of JAX.  Phases, one or more lines each:
    float32, also on schedule "stream", with microseconds per step beside
    the streamed step's bound (over the L2 copy rate measured here);
 6. ``components_fused`` against its plain version at the same sizes, with
-   10 % and 45 % of the edges masked;
+   10 % and 45 % of the edges active, on four wrapped families at 140 x 140
+   and 724 x 724 and on a 48 x 48 snake (``components_cases``): labels and
+   component counts equal, passes, device time, time per call and host
+   time;
 7. ``solve_fused`` against its plain version on the EEG problem's first
    steepest cut (dense, rv_cap 4096: ``solve_fused``'s shape below dense
    rv_cap 8192, where the route sends ``solve_small``), on the call of
@@ -39,10 +42,12 @@ It imports nothing of JAX.  Phases, one or more lines each:
    reduced problems, ``solve_small`` on every cluster size (the crossover
    behind ``SOLVE_FUSED_MIN_RV_CAP`` and ``solve_small.cluster_size``);
 8. ``stencil_fused_simplex`` against its plain version at 140 x 140,
-   F = 2, K = 4 for four losses (one iteration in float64 and float32, a
-   400-iteration float64 loop of the solver's kernel loop), the kernel loop
-   with monitoring, progress lines and reconditioning against the staged
-   loop, and the time per launch of both;
+   F = 2, K = 4 for four losses and K = 2, 3, 8, 9, 32 for two (one
+   iteration in float64 and float32, a 400-iteration float64 loop of the
+   solver's kernel loop at K = 4 and 9), the graph's plan path against the
+   standalone wrapper, the kernel loop with monitoring, progress lines and
+   reconditioning against the staged loop, and the time per call (device,
+   CUDA events, host) of both;
 9. ``mincut_fused`` and ``components_fused`` against their plain versions
    on the inputs the multi-label cut-pursuit path gives them (the calls of
    an expansion cut and a components call recorded from its device loop
@@ -103,6 +108,8 @@ It imports nothing of JAX.  Phases, one or more lines each:
    window, and the P = 1 busy share is profiled after it.
 
 ``python3 chip_smoke.py --compare`` runs only ``compare_timings`` (the
+``stencil_fused_simplex`` and ``components_fused`` calls, the
+``pfdr-simplex`` iterations and the two kernels' splits, then the
 ``circulant_fused_simplex``, ``circulant_fused`` and ``banded_fused``
 calls and the two quadratic mesh solves' iterations, ``solve_small``'s 300
 iterations on the main shapes, the EEG host cut, the ``mincut_fused``
@@ -893,35 +900,95 @@ def phase_mincut(device="cuda"):
     return errs, out
 
 
-def phase_components(device="cuda"):
-    """``components_fused`` against its plain version: labels and
-    component counts equal bit for bit (the fixpoint is unique)."""
+def snake_mask(side, device):
+    """A side x side, F = 2 mask whose set edges form one path through
+    every cell (a boustrophedon: each row's horizontal edges, and one
+    vertical edge at alternating ends), the longest diameter a component
+    of the field can have (V - 1)."""
     import torch
-    from cp_pfdr_graph_d1_tpu_torch.ops import components_fused as cf
-    out = {}
-    for side in (V_SIDE, SIDE_524K):
+    m = np.zeros((2, side, side), bool)
+    m[0, :, :-1] = True
+    m[1, 0:side - 1:2, side - 1] = True
+    m[1, 1:side - 1:2, 0] = True
+    return torch.as_tensor(m, device=device)
+
+
+def components_cases(device):
+    """``(name, mask, shifts)`` of phase_components: 140 x 140 (the EEG
+    chain's field), 512 x 512 (the multi-label CP's) and 724 x 724 (the
+    524k CP's), F = 2, non-wrapping, 10 % and 45 % of the edges active (the
+    mask keeps the inactive nonzero-weight edges, as a cut-pursuit
+    iteration does); four families (with (1, 1) and (1, -1)) on a field
+    that wraps on both axes at 140 x 140 and 724 x 724; the 48 x 48
+    snake."""
+    import torch
+    from cp_pfdr_graph_d1_tpu_torch import StencilGraphD1
+    cases = []
+    for side in MINCUT_SIDES:
         for frac in (0.1, 0.45):
             g, active, _ = masked_stencil(side, torch.float32, device, frac,
                                           1)
-            mask = (~active & (g.la_d1 > 0)).reshape(2, side,
-                                                     side).contiguous()
-            kw = dict(shifts=g.shifts, it_max=side * side)
-            lab_k, rounds_k = cf.fused_components(mask, **kw)
-            lab_p, rounds_p = cf.components_plain(mask, **kw)
-            iota = torch.arange(side * side, device=device)
-            n_k = int((lab_k.reshape(-1) == iota).sum())
-            n_p = int((lab_p.reshape(-1) == iota).sum())
-            check(bool((lab_k == lab_p).all()) and n_k == n_p,
-                  f"components {side} {frac}: labels differ ({n_k} vs "
-                  f"{n_p} components)")
-            ms = cuda_ms(lambda: cf.fused_components(mask, **kw), 20)
-            plain_ms = cuda_ms(lambda: cf.components_plain(mask, **kw), 2)
-            out[(side, frac)] = dict(ms=ms, plain_ms=plain_ms,
-                                     rounds=int(rounds_k), v=side * side)
-            print(f"[components_fused] {side}x{side}, {frac:.0%} active: "
-                  f"{n_k} components, labels equal to the plain version's; "
-                  f"{int(rounds_k)} rounds (plain {int(rounds_p)}); "
-                  f"{ms:.3f} ms, plain {plain_ms:.2f} ms", flush=True)
+            mask = (~active & (g.la_d1 > 0)).reshape(2, side, side)
+            cases.append((f"{side}x{side} {frac:.0%}", mask.contiguous(),
+                          g.shifts))
+    four = {(0, 1): 0.3, (1, 0): 0.3, (1, 1): 0.2, (1, -1): 0.2}
+    for side in (V_SIDE, SIDE_524K):
+        g = StencilGraphD1.create((side, side), four, wrap=(True, True),
+                                  dtype=torch.float32, device=device)
+        r = np.random.default_rng(2)
+        active = torch.as_tensor(r.random(g.num_edges) < 0.45, device=device)
+        mask = (~active & (g.la_d1 > 0)).reshape(4, side, side)
+        cases.append((f"{side}x{side} F=4 wrapped 45%", mask.contiguous(),
+                      g.shifts))
+    cases.append(("48x48 snake", snake_mask(48, device), ((0, 1), (1, 0))))
+    return cases
+
+
+def components_call_times(fn):
+    """Device time (torch.profiler, 50 calls), per call between CUDA events
+    (50 calls) and the host clock over 200 calls (fewer than the launch
+    queue holds, so the host does not wait on the card) of ``fn``."""
+    counts = {}
+    dev, per, _ = device_profile(fn, 50, counts)
+    kernels = {re.sub(r"^cp_pfdr::|\(.*$", "", k): f"{us:.2f} us x "
+               f"{counts[k] / 50:g}" for k, us in per.items()}
+    return dict(device_us=dev, ms=cuda_ms(fn, 50), host_us=host_us(fn, 200),
+                kernels=kernels)
+
+
+def phase_components(device="cuda"):
+    """``components_fused`` against its plain version on
+    ``components_cases``: labels and component counts equal bit for bit
+    (the fixpoint is unique); the kernel's passes beside the plain
+    version's rounds, and its times (``components_call_times``)."""
+    import torch
+    from cp_pfdr_graph_d1_tpu_torch.ops import components_fused as cf
+    out = {}
+    for name, mask, shifts in components_cases(device):
+        f, h, w = mask.shape
+        kw = dict(shifts=shifts, it_max=h * w)
+        lab_k, passes = cf.fused_components(mask, **kw)
+        lab_p, rounds_p = cf.components_plain(mask, **kw)
+        iota = torch.arange(h * w, device=device)
+        n_k = int((lab_k.reshape(-1) == iota).sum())
+        n_p = int((lab_p.reshape(-1) == iota).sum())
+        check(lab_k.dtype == torch.int32 and bool((lab_k == lab_p).all())
+              and n_k == n_p, f"components {name}: labels differ ({n_k} vs "
+              f"{n_p} components)")
+        t = (components_call_times(lambda: cf.fused_components(mask, **kw))
+             if device == "cuda" else dict(device_us=0.0, ms=0.0,
+                                           host_us=0.0, kernels={}))
+        plain_ms = (cuda_ms(lambda: cf.components_plain(mask, **kw), 2)
+                    if device == "cuda" else 0.0)
+        out[name] = dict(t, plain_ms=plain_ms, passes=int(passes),
+                         plain_rounds=int(rounds_p), v=h * w, f=f,
+                         components=n_k)
+        print(f"[components_fused] {name}: {n_k} components, labels equal "
+              f"to the plain version's; {int(passes)} passes (plain "
+              f"{int(rounds_p)} rounds); {t['device_us']:.2f} us of device "
+              f"time ({t['kernels']}), {t['ms'] * 1e3:.2f} us per call "
+              f"(CUDA events), {t['host_us']:.2f} us of host time; plain "
+              f"{plain_ms:.2f} ms", flush=True)
     return out
 
 
@@ -1510,37 +1577,40 @@ SIDE_262K = 512   # bench.py:bench_cut_pursuit_simplex, V = 262,144
 N_EDGES_EEG = 2 * V_SIDE * (V_SIDE - 1)
 
 
-def simplex_q():
+def simplex_q(k=None):
     """``bench.py:bench_simplex``'s observations: Dirichlet(0.7) rows of
-    K = 4 labels on the 140 x 140 grid (seed 11)."""
+    K = 4 labels on the 140 x 140 grid (seed 11); for another ``k``, the
+    same draw of ``k`` labels."""
+    k = K_SIMPLEX if k is None else k
     r = np.random.default_rng(11)
-    return r.dirichlet(np.full(K_SIMPLEX, 0.7),
-                       size=V_SIDE * V_SIDE).astype(np.float32)
+    return r.dirichlet(np.full(k, 0.7), size=V_SIDE * V_SIDE).astype(
+        np.float32)
 
 
-def simplex_problem(dtype, device, la_f):
+def simplex_problem(dtype, device, la_f, k=None):
     """``bench_simplex``'s stencil (140 x 140, F = 2, weights 0.5), its
-    observations and the loss weights ``la_f`` (a constant, or None)."""
+    observations (of ``k`` labels: ``simplex_q``) and the loss weights
+    ``la_f`` (a constant, or None)."""
     import torch
     from cp_pfdr_graph_d1_tpu_torch import StencilGraphD1
     g = StencilGraphD1.create((V_SIDE, V_SIDE), {(0, 1): 0.5, (1, 0): 0.5},
                               dtype=dtype, device=device)
-    q = torch.as_tensor(simplex_q(), dtype=dtype, device=device)
+    q = torch.as_tensor(simplex_q(k), dtype=dtype, device=device)
     laf = (torch.full((g.num_vertices,), la_f, dtype=dtype, device=device)
            if la_f is not None else None)
     return g, q, laf
 
 
-def simplex_planes(dtype, device, al, la_f, label_mode, seed=3):
-    """Kernel inputs of one multi-label iteration on ``simplex_problem``:
-    the preconditioner of the problem, a seeded random iterate on the
-    simplex and random auxiliary pairs, as ``[K, H, W]`` and
-    ``[F, K, H, W]`` planes."""
+def simplex_planes(dtype, device, al, la_f, label_mode, seed=3, k=None):
+    """Kernel inputs of one multi-label iteration on ``simplex_problem``
+    (``k`` labels, default K_SIMPLEX): the preconditioner of the problem, a
+    seeded random iterate on the simplex and random auxiliary pairs, as
+    ``[K, H, W]`` and ``[F, K, H, W]`` planes; and the stencil graph."""
     import torch
     from cp_pfdr_graph_d1_tpu_torch.solvers import pfdr_simplex as ps
     h = w = V_SIDE
-    k = K_SIMPLEX
-    g, q, laf = simplex_problem(dtype, device, la_f)
+    k = K_SIMPLEX if k is None else k
+    g, q, laf = simplex_problem(dtype, device, la_f, k)
     f = len(g.shifts)
     t = lambda z: torch.as_tensor(z, dtype=dtype, device=device)  # noqa
     r = np.random.default_rng(seed)
@@ -1566,20 +1636,21 @@ def simplex_planes(dtype, device, al, la_f, label_mode, seed=3):
                                     pre.w_d1v, pre.th_d1)))
     kw = dict(shifts=g.shifts, rho=1.5, al=al, has_laf=la_f is not None,
               label_mode=label_mode)
-    return args, kw
+    return args, kw, g
 
 
-def simplex_loop(dtype, device, al, la_f, label_mode, plain):
+def simplex_loop(dtype, device, al, la_f, label_mode, plain, k=None):
     """400 iterations of the solver's kernel loop
-    (``pfdr_simplex._simplex_fused_loop``) on ``simplex_problem`` from the
-    uniform start, each iteration the kernel's wrapper or, with ``plain``,
-    its plain version, both on the card.  Returns ``(p, iterations)``."""
+    (``pfdr_simplex._simplex_fused_loop``) on ``simplex_problem`` (``k``
+    labels) from the uniform start, each iteration the graph's kernel step
+    or, with ``plain``, the kernel's plain version, both on the card.
+    Returns ``(p, iterations)``."""
     import torch
     from cp_pfdr_graph_d1_tpu_torch import PFDROptions
     from cp_pfdr_graph_d1_tpu_torch.ops import stencil_fused_simplex as sfs
     from cp_pfdr_graph_d1_tpu_torch.solvers import pfdr_simplex as ps
-    g, q, laf = simplex_problem(dtype, device, la_f)
-    p0 = torch.full_like(q, 1.0 / K_SIMPLEX)
+    g, q, laf = simplex_problem(dtype, device, la_f, k)
+    p0 = torch.full_like(q, 1.0 / q.shape[1])
     pre = ps.initial_precondition_simplex(al, laf, g, q, p0, 1.5)
     opt = PFDROptions(rho=1.5, dif_tol=1.0 if label_mode else 1e-9,
                       it_max=400)
@@ -1591,63 +1662,112 @@ def simplex_loop(dtype, device, al, la_f, label_mode, plain):
     return res.p, res.it
 
 
+# label counts of the kernel-vs-plain checks: K_SIMPLEX (the main path's,
+# four losses) and the others the kernel compiles (2, 3, 8) or reads at run
+# time (9, 32), an evolution and a label-mode case each; the 400-iteration
+# float64 loops at K_SIMPLEX and 9
+SIMPLEX_KS = (2, 3, 4, 8, 9, 32)
+SIMPLEX_OTHER_CASES = (("al=1 la_f", 1.0, 0.8, False),
+                       ("al=0.5 labels", 0.5, None, True))
+SIMPLEX_LOOP_KS = (K_SIMPLEX, 9)
+
+
+def simplex_timings(args, kw, g):
+    """Times of one multi-label iteration, float32: device time
+    (torch.profiler, 200 calls), per call between CUDA events (500 calls)
+    and the host clock over 10,000 calls, through
+    ``StencilGraphD1.fused_simplex_iteration`` and the standalone wrapper
+    (an older checkout of the port takes the same calls)."""
+    from cp_pfdr_graph_d1_tpu_torch.ops import stencil_fused_simplex as sfs
+    out = {}
+    for name, step in (
+            ("graph", lambda: g.fused_simplex_iteration(
+                *args, **{k: v for k, v in kw.items() if k != "shifts"})),
+            ("standalone",
+             lambda: sfs.fused_stencil_simplex_iteration(*args, **kw))):
+        counts = {}
+        dev = device_profile(step, 200, counts)[0]
+        out[name] = dict(device_us=dev, ms=cuda_ms(step, 500),
+                         host_us=host_us(step), kernels=counts)
+    return out
+
+
 def phase_stencil_simplex(device="cuda"):
     """``stencil_fused_simplex`` against its plain version on the card at
-    140 x 140, F = 2, K = 4, for four losses: one iteration (float64 within
+    140 x 140, F = 2, for K in SIMPLEX_KS: one iteration (float64 within
     1e-12, float32 within 1e-5 on p, zu, zv, and the evolution sum
     relative to max(1, |plain|); equal labels and counts in float64, at
     most 0.1 % of the vertices apart in float32, where FMA contraction may
-    flip a near tie), then a 400-iteration float64 loop of each with equal
-    iteration counts.  Times: CUDA events and torch.profiler device time
-    per launch, float32, the main path's case (al = 1, no la_f)."""
+    flip a near tie), at K = 4 for four losses, else for SIMPLEX_OTHER_CASES;
+    then a 400-iteration float64 loop of each at K in SIMPLEX_LOOP_KS with
+    equal iteration counts.  ``StencilGraphD1.fused_simplex_iteration``
+    (its plan on the graph) equals the standalone wrapper bit for bit.
+    Times (``simplex_timings``): float32, the main path's case (K = 4,
+    al = 1, no la_f)."""
     import torch
     from cp_pfdr_graph_d1_tpu_torch.ops import stencil_fused_simplex as sfs
     tols = {torch.float64: 1e-12, torch.float32: 1e-5}
     errs = {torch.float64: 0.0, torch.float32: 0.0}
     v = V_SIDE * V_SIDE
-    for dtype in (torch.float64, torch.float32):
-        for name, al, la_f, label_mode in SIMPLEX_CASES:
-            args, kw = simplex_planes(dtype, device, al, la_f, label_mode)
-            out_k = sfs.fused_stencil_simplex_iteration(*args, **kw)
-            out_p = sfs.stencil_simplex_iteration_plain(*args, **kw)
-            if device == "cuda":
-                check(out_k[0].is_cuda, "kernel output not on the card")
-            err = max(max_err(out_k[i], out_p[i]) for i in (0, 2, 3))
-            tol = tols[dtype]
-            if label_mode:
-                n_lab = int((out_k[1] != out_p[1]).sum())
-                d_cnt = abs(float(out_k[4]) - float(out_p[4]))
-                allowed = 0 if dtype == torch.float64 else v // 1000
-                check(n_lab <= allowed and d_cnt <= allowed,
-                      f"stencil_fused_simplex {dtype} {name}: {n_lab} "
-                      f"labels and count {d_cnt} apart (allowed {allowed})")
-                rel = d_cnt
-                extra = (f"labels apart {n_lab}, counts {float(out_k[4]):.0f}"
-                         f" vs {float(out_p[4]):.0f}")
-            else:
-                err = max(err, max_err(out_k[1], out_p[1]))
-                rel = (max_err(out_k[4], out_p[4])
-                       / max(1.0, abs(float(out_p[4]))))
-                check(rel <= tol, f"stencil_fused_simplex {dtype} {name}: "
-                      f"sum rel err {rel:.3g} > {tol}")
-                extra = f"evolution sum rel err {rel:.3e}"
-            check(err <= tol, f"stencil_fused_simplex {dtype} {name}: "
-                  f"p/zu/zv err {err:.3g} > {tol}")
-            errs[dtype] = max(errs[dtype], err)
-            line = (f"[stencil_fused_simplex] {str(dtype)[6:]} {name:13s} "
-                    f"one iteration: p/zu/zv max|kernel-plain| = {err:.3e} "
-                    f"(tol {tol:g}); {extra}")
-            if dtype == torch.float64:
-                pk, itk = simplex_loop(dtype, device, al, la_f, label_mode,
-                                       plain=False)
-                pp, itp = simplex_loop(dtype, device, al, la_f, label_mode,
-                                       plain=True)
-                lerr = max_err(pk, pp)
-                check(itk == itp, f"stencil_fused_simplex {name}: loop of "
-                      f"{itk} iterations vs plain {itp}")
-                line += (f"; 400-iteration loop: {itk} iterations (plain "
-                         f"{itp}), p max|kernel-plain| {lerr:.3e}")
-            print(line, flush=True)
+    for k in SIMPLEX_KS:
+        cases = SIMPLEX_CASES if k == K_SIMPLEX else SIMPLEX_OTHER_CASES
+        for dtype in (torch.float64, torch.float32):
+            for name, al, la_f, label_mode in cases:
+                args, kw, _ = simplex_planes(dtype, device, al, la_f,
+                                             label_mode, k=k)
+                out_k = sfs.fused_stencil_simplex_iteration(*args, **kw)
+                out_p = sfs.stencil_simplex_iteration_plain(*args, **kw)
+                if device == "cuda":
+                    check(out_k[0].is_cuda, "kernel output not on the card")
+                err = max(max_err(out_k[i], out_p[i]) for i in (0, 2, 3))
+                tol = tols[dtype]
+                tag = f"stencil_fused_simplex {dtype} K={k} {name}"
+                if label_mode:
+                    n_lab = int((out_k[1] != out_p[1]).sum())
+                    d_cnt = abs(float(out_k[4]) - float(out_p[4]))
+                    allowed = 0 if dtype == torch.float64 else v // 1000
+                    check(n_lab <= allowed and d_cnt <= allowed,
+                          f"{tag}: {n_lab} labels and count {d_cnt} apart "
+                          f"(allowed {allowed})")
+                    extra = (f"labels apart {n_lab}, counts "
+                             f"{float(out_k[4]):.0f} vs "
+                             f"{float(out_p[4]):.0f}")
+                else:
+                    err = max(err, max_err(out_k[1], out_p[1]))
+                    rel = (max_err(out_k[4], out_p[4])
+                           / max(1.0, abs(float(out_p[4]))))
+                    check(rel <= tol, f"{tag}: sum rel err {rel:.3g} > "
+                          f"{tol}")
+                    extra = f"evolution sum rel err {rel:.3e}"
+                check(err <= tol, f"{tag}: p/zu/zv err {err:.3g} > {tol}")
+                errs[dtype] = max(errs[dtype], err)
+                line = (f"[stencil_fused_simplex] {str(dtype)[6:]} K={k:<2d} "
+                        f"{name:13s} one iteration: p/zu/zv "
+                        f"max|kernel-plain| = {err:.3e} (tol {tol:g}); "
+                        f"{extra}")
+                if dtype == torch.float64 and k in SIMPLEX_LOOP_KS:
+                    pk, itk = simplex_loop(dtype, device, al, la_f,
+                                           label_mode, plain=False, k=k)
+                    pp, itp = simplex_loop(dtype, device, al, la_f,
+                                           label_mode, plain=True, k=k)
+                    lerr = max_err(pk, pp)
+                    check(itk == itp, f"{tag}: loop of {itk} iterations vs "
+                          f"plain {itp}")
+                    line += (f"; 400-iteration loop: {itk} iterations "
+                             f"(plain {itp}), p max|kernel-plain| "
+                             f"{lerr:.3e}")
+                print(line, flush=True)
+    # the graph's plan path against the standalone wrapper
+    args, kw, g = simplex_planes(torch.float32, device, 1.0, None, False)
+    gkw = {k: v for k, v in kw.items() if k != "shifts"}
+    out_g = g.fused_simplex_iteration(*args, **gkw)
+    out_s = sfs.fused_stencil_simplex_iteration(*args, **kw)
+    check(all(torch.equal(a, b) for a, b in zip(out_g, out_s)),
+          "stencil_fused_simplex: the graph's plan path and the standalone "
+          "wrapper differ")
+    if device == "cuda":
+        check(len(g._simplex_plans) == 1, f"the graph holds "
+              f"{len(g._simplex_plans)} simplex plans, not 1")
     # monitoring, progress lines and reconditioning between the kernel's
     # launches, against the staged loop on the card
     from cp_pfdr_graph_d1_tpu_torch import PFDROptions, pfdr_loss_d1_simplex
@@ -1675,25 +1795,33 @@ def phase_stencil_simplex(device="cuda"):
           and runs["on lines"] == runs["off lines"], line)
     times = {}
     if device == "cuda":
-        args, kw = simplex_planes(torch.float32, device, 1.0, None, False)
-
-        def kern():
-            return sfs.fused_stencil_simplex_iteration(*args, **kw)
+        args, kw, g = simplex_planes(torch.float32, device, 1.0, None, False)
+        t = simplex_timings(args, kw, g)
+        for name, tn in t.items():
+            # one kernel, launched once a call (the profiler may drop an
+            # event at the start of its window, never add one)
+            counts = tn["kernels"]
+            check(len(counts) == 1 and 0 < max(counts.values()) <= 200,
+                  f"stencil_fused_simplex ({name}): not one launch a stage: "
+                  f"{counts}")
 
         def plain():
             return sfs.stencil_simplex_iteration_plain(*args, **kw)
 
-        times["ms"] = cuda_ms(kern, 500)
-        times["plain_ms"] = cuda_ms(plain, 200)
-        dev_k, _, _ = device_profile(kern, 200)
-        dev_p, per_p, _ = device_profile(plain, 200)
-        times["device_us"], times["plain_device_us"] = dev_k, dev_p
+        times = dict(ms=t["graph"]["ms"], device_us=t["graph"]["device_us"],
+                     host_us=t["graph"]["host_us"],
+                     standalone_host_us=t["standalone"]["host_us"],
+                     plain_ms=cuda_ms(plain, 200),
+                     plain_device_us=device_profile(plain, 200)[0])
         print(f"[stencil_fused_simplex] float32 {V_SIDE}x{V_SIDE} F=2 "
-              f"K={K_SIMPLEX} al=1, per call: kernel {times['ms'] * 1e3:.2f}"
-              f" us between CUDA events ({dev_k:.2f} us of device time, 2 "
-              f"kernels), plain {times['plain_ms'] * 1e3:.2f} us "
-              f"({dev_p:.2f} us of device time, {len(per_p)} distinct "
-              f"kernels)", flush=True)
+              f"K={K_SIMPLEX} al=1, per call through "
+              f"StencilGraphD1.fused_simplex_iteration: {times['ms'] * 1e3:.2f}"
+              f" us between CUDA events, {times['device_us']:.2f} us of "
+              f"device time ({t['graph']['kernels']}), "
+              f"{times['host_us']:.2f} us of host time (10,000 calls; the "
+              f"standalone wrapper {times['standalone_host_us']:.2f}); plain "
+              f"{times['plain_ms'] * 1e3:.2f} us ({times['plain_device_us']:.2f}"
+              f" us of device time)", flush=True)
     return errs, times
 
 
@@ -1932,16 +2060,20 @@ def phase_cp_simplex_kernels(device="cuda"):
         mask[0].numel(), device=device)).sum())
     check(bool((lab_k == lab_p).all()), "components_fused on the cp-simplex "
           "path: labels differ from the plain version's")
+    t = components_call_times(lambda: cf.fused_components(mask, **ckw))
     comp = dict(shape=f"{SIDE_262K}x{SIDE_262K} F=2, components of CP "
                       f"iteration {it_c + 1}",
-                rounds=[int(rounds_k), int(rounds_p)], components=n_comp,
-                labels_equal=True,
-                ms=cuda_ms(lambda: cf.fused_components(mask, **ckw), 20),
+                passes=int(rounds_k), plain_rounds=int(rounds_p),
+                components=n_comp, labels_equal=True, ms=t["ms"],
+                device_us=t["device_us"], host_us=t["host_us"],
                 plain_ms=cuda_ms(lambda: cf.components_plain(mask, **ckw),
                                  2))
     print(f"[cp-simplex components] {comp['shape']}: {n_comp} components, "
-          f"labels equal to the plain version's; rounds {comp['rounds']}; "
-          f"{comp['ms']:.3f} ms, plain {comp['plain_ms']:.2f} ms", flush=True)
+          f"labels equal to the plain version's; {comp['passes']} passes "
+          f"(plain {comp['plain_rounds']} rounds); {t['device_us']:.2f} us "
+          f"of device time, {comp['ms'] * 1e3:.2f} us per call (CUDA "
+          f"events), {t['host_us']:.2f} us of host time; plain "
+          f"{comp['plain_ms']:.2f} ms", flush=True)
     return out, comp
 
 
@@ -1984,6 +2116,21 @@ def phase_cp_simplex(ref, device="cuda"):
     check(rel <= 1e-3, f"multi-label CP objective {obj} vs float64 "
           f"{ref['obj']}: {rel:.3g} relative")
     return t_best
+
+
+COMPONENTS_KERNEL = re.compile(r"cp_pfdr::comp\w*_kernel")
+
+
+def print_components_share(name, per, counts):
+    """The summed device time and launches of ``components_fused``'s
+    kernels (the parent's ``components_kernel`` included) in one profiled
+    run (``device_profile``'s per-kernel dict)."""
+    keys = [k for k in per if COMPONENTS_KERNEL.search(k)]
+    print(f"[profile] {name} run: components_fused "
+          f"{sum(per[k] for k in keys):.2f} us of device time in "
+          f"{sum(counts.get(k, 0) for k in keys)} kernel launches ("
+          + "; ".join(f"{k[:40]} {per[k]:.2f} us x {counts.get(k, 0)}"
+                      for k in keys) + ")", flush=True)
 
 
 def phase_profile(device="cuda"):
@@ -2052,12 +2199,14 @@ def phase_profile(device="cuda"):
         return out
 
     chn._warm_partition = timed_warm
+    counts = {}
     try:
         dev, per, wall = device_profile(lambda: cp_quadratic_d1(
             op, obs, g, la_l1=np.full(a.shape[1], LA_L1, np.float32),
-            positivity=True, opt=chain_options()), 1)
+            positivity=True, opt=chain_options()), 1, counts)
     finally:
         chn._warm_partition = warm
+    print_components_share("cp-chain", per, counts)
     top = sorted(per.items(), key=lambda kv: -kv[1])[:5]
     print(f"[profile] cp-chain run: device busy {dev / 1e3:.1f} ms of "
           f"{wall / 1e3:.1f} ms on the host clock (idle share "
@@ -2073,8 +2222,10 @@ def phase_profile(device="cuda"):
                      pfdr=PFDROptions(rho=1.8, dif_tol=1e-5, it_max=2000),
                      cut="device", chain="off", cut_tol=1e-5,
                      cut_it_max=50_000)
+    counts = {}
     dev, per, wall = device_profile(
-        lambda: cp_quadratic_d1(IdentityOp(), y5, g5, opt=opt5), 1)
+        lambda: cp_quadratic_d1(IdentityOp(), y5, g5, opt=opt5), 1, counts)
+    print_components_share("cp-device 524k", per, counts)
     top = sorted(per.items(), key=lambda kv: -kv[1])[:5]
     print(f"[profile] cp-device 524k run: device busy {dev / 1e3:.1f} ms of "
           f"{wall / 1e3:.1f} ms on the host clock (idle share "
@@ -3753,7 +3904,7 @@ def main():
     rv_big = max(ss_t["ms"])
     rv_cap, ne, n_rows = ss_t["dims"][rv_big]
     mc = mc_t[(SIDE_524K, torch.float32)]
-    cc = cc_t[(SIDE_524K, 0.1)]
+    cc = cc_t[f"{SIDE_524K}x{SIDE_524K} 10%"]
     v5 = SIDE_524K * SIDE_524K
     work = {
         "stencil_fused": (4 * (5 * v_eeg + 9 * f2 * v_eeg + 2),
@@ -3763,8 +3914,10 @@ def main():
                          mc["it"] * (10 * f2 * v5 + 6 * v5)
                          + mc["it"] // 250 * (15 * (2 * v5 + 3 * f2 * v5)
                                               + 4 * f2 * v5 + 3 * v5)),
+        # the mask read once, the labels written once; about 4 integer
+        # operations per edge end and 4 per cell in each pass
         "components_fused": (f2 * v5 + 4 * v5,
-                             cc["rounds"] * (4 * f2 + 4) * v5),
+                             cc["passes"] * (4 * f2 + 4) * v5),
         "solve_fused": reduced_solve_work(sfm["mesh_args"][5].shape[0],
                                           sfm["mesh_args"][8].shape[0],
                                           sfm["mesh_args"][1].shape[0], 3000),
@@ -3854,9 +4007,15 @@ def main():
                    f"{mc['it']} steps", cp_simplex_cut=cps_cut),
         dict(name="components_fused", source="components_fused.cu",
              replaces="components_fused.py:84", max_abs_err=0.0,
-             ms=cc["ms"], plain_ms=cc["plain_ms"],
+             ms=cc["ms"], plain_ms=cc["plain_ms"], device_us=cc["device_us"],
+             host_us_per_call=cc["host_us"],
              shape=f"{SIDE_524K}x{SIDE_524K} F=2, 10% active, "
-                   f"{cc['rounds']} rounds", cp_simplex_components=cps_comp),
+                   f"{cc['passes']} passes (union-find)",
+             cases={name: {k: t[k] for k in ("device_us", "ms", "host_us",
+                                             "passes", "plain_rounds",
+                                             "components")}
+                    for name, t in cc_t.items()},
+             cp_simplex_components=cps_comp),
         dict(name="solve_fused", source="solve_fused.cu",
              replaces="solve_fused.py:300", max_abs_err=sf_err[
                  torch.float32], max_abs_err_f64=sf_err[torch.float64],
@@ -3884,8 +4043,12 @@ def main():
              max_abs_err_f64=sx_err[torch.float64], ms=sx_t["ms"],
              plain_ms=sx_t["plain_ms"], device_us=sx_t["device_us"],
              plain_device_us=sx_t["plain_device_us"],
+             host_us_per_call=sx_t["host_us"],
+             standalone_host_us_per_call=sx_t["standalone_host_us"],
              shape=f"{V_SIDE}x{V_SIDE} F=2 K={K_SIMPLEX}, one multi-label "
-                   f"PFDR iteration"),
+                   f"PFDR iteration (one launch, a thread a (cell, label), "
+                   f"through the plan on the StencilGraphD1); checked at "
+                   f"K={list(SIMPLEX_KS)}"),
     ]
     f32, f64 = torch.float32, torch.float64
     for kern in ("gather", "scatter"):
@@ -3981,7 +4144,8 @@ def compare_timings(device="cuda"):
     """``python3 chip_smoke.py --compare``: timings that another checkout of
     the port can run with its own kernels (copy this script into its root
     and run it there), so that two versions are compared on one card in
-    one call: ``circulant_fused_simplex`` per call on the mesh (K = 4,
+    one call: first ``compare_simplex_components``, then
+    ``circulant_fused_simplex`` per call on the mesh (K = 4,
     al = 1, float32; CUDA events over 200 calls, and device time),
     ``circulant_fused`` and ``banded_fused`` per call on the mesh (float32,
     l1 with positivity; CUDA events over 200 calls, device time, and the
@@ -4009,6 +4173,7 @@ def compare_timings(device="cuda"):
     phase_env()
     phase_build()
     import torch
+    compare_simplex_components(device)
     from cp_pfdr_graph_d1_tpu_torch.ops import solve_fused as sfu
     from cp_pfdr_graph_d1_tpu_torch.ops import stencil_fused as sf
     args, kw = mesh_whole_inputs(torch.float32, device, 0.0, 3000)
@@ -4131,6 +4296,38 @@ def compare_timings(device="cuda"):
           "200 calls / host clock, 10,000 calls): " + "; ".join(
               f"{k} {cuda_ms(f, 200) * 1e3:.2f} / {host_us(f):.2f}"
               for k, f in calls.items()), flush=True)
+
+
+def compare_simplex_components(device="cuda"):
+    """The first timings of ``--compare``: ``stencil_fused_simplex``
+    (``simplex_timings``: float32, 140 x 140, K = 4, al = 1), the
+    ``[pfdr-simplex]`` solve in us an iteration (3000 float32 iterations
+    after a 300-iteration run) and ``components_fused`` on every case of
+    ``components_cases`` (``components_call_times``: each of the three
+    kernels' device time is the split of the new schedule's passes)."""
+    import torch
+    from cp_pfdr_graph_d1_tpu_torch.ops import components_fused as cf
+    args, kw, g = simplex_planes(torch.float32, device, 1.0, None, False)
+    for name, t in simplex_timings(args, kw, g).items():
+        print(f"[compare] stencil_fused_simplex float32 {V_SIDE}x{V_SIDE} "
+              f"K={K_SIMPLEX} al=1 ({name}): {t['device_us']:.2f} us of "
+              f"device time ({t['kernels']}), {t['ms'] * 1e3:.2f} us per "
+              f"call (CUDA events), {t['host_us']:.2f} us of host time per "
+              f"call (10,000 calls)", flush=True)
+    pfdr_simplex_solve(torch.float32, device, 300).p.cpu()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pfdr_simplex_solve(torch.float32, device, 3000).p.cpu()
+    dt = time.perf_counter() - t0
+    print(f"[compare] pfdr-simplex float32: {dt * 1e6 / 3000:.2f} us an "
+          f"iteration", flush=True)
+    for name, mask, shifts in components_cases(device):
+        kw = dict(shifts=shifts, it_max=mask[0].numel())
+        t = components_call_times(lambda: cf.fused_components(mask, **kw))
+        print(f"[compare] components_fused {name}: {t['device_us']:.2f} us "
+              f"of device time ({t['kernels']}), {t['ms'] * 1e3:.2f} us per "
+              f"call (CUDA events), {t['host_us']:.2f} us of host time per "
+              f"call (200 calls)", flush=True)
 
 
 def profile_only():

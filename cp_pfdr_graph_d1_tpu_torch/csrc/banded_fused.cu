@@ -151,7 +151,7 @@ banded_fused_kernel(BandedStage<T> a, T *__restrict__ partials,
       stage_vertex_tail(acc, __ldg(&a.th_l1[v]), xc, a.vkind, a.positivity,
                         a.lo, a.hi, a.xo + v, num, den);
   }
-  last_block_sums(num, den, partials, ticket, sums, scratch);
+  last_block_sums<4>(num, den, partials, ticket, sums, scratch);
 }
 
 template <typename T>

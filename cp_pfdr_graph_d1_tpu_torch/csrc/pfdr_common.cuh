@@ -244,42 +244,86 @@ __device__ __forceinline__ void block_sum_k(T (&v)[K], T *scratch, T &out) {
   __syncthreads();
 }
 
-// Ends a launch's two sums (a, b) in the launch itself.  Call with every
-// thread of the block, after a block reduction that left the block's sums
-// in thread 0.  Thread 0 writes them to partials[2 blockIdx.x ...], then
-// takes an integer ticket with one acquire-release atomic (it publishes the
-// partials; the barrier after it passes what the last block's thread 0
-// acquired on to its other threads, as a semaphore does): the last block
-// to finish adds all blocks' partials in block order (thread i the blocks
-// i, i + blockDim.x, ..., then block_sum2), writes sums[0..1] and resets
-// the ticket to 0 for the next launch.  No float atomics: the sums are the
-// same in every run.  One ticket serves one launch at a time.
-template <typename T>
-__device__ __forceinline__ void last_block_sums(T a, T b, T *partials,
-                                                int *ticket, T *sums,
-                                                T *scratch) {
+// Ends a launch's N sums (N = 1 or 2) in the launch itself.  Call with
+// every thread of the block, after a block reduction that left the block's
+// sums v[0..N-1] in thread 0.  Thread 0 writes them to
+// partials[N blockIdx.x ...], then takes an integer ticket with one
+// acquire-release atomic (it publishes the partials; the barrier after it
+// passes what the last block's thread 0 acquired on to its other threads,
+// as a semaphore does): the last block to finish adds every block's
+// partials in a fixed order (thread i loads the blocks i, i + blockDim.x,
+// ..., i + (W - 1) blockDim.x at once, adds them pairwise, then moves on
+// by W blockDim.x; then block_sum2), writes sums[0..N-1] and resets the
+// ticket to 0 for the next launch.  No float atomics: the sums are the
+// same in every run.  One ticket serves one launch at a time.  W (1, 2 or
+// 4) is the caller's, measured on the H100 (PERF.md, section 6):
+// stencil_fused was 0.3 us faster at W = 1, banded_fused and
+// stencil_fused_simplex 0.1-0.3 us faster at W = 4, circulant_fused the
+// same at both.
+template <int W, int N, typename T>
+__device__ __forceinline__ void last_block_sums_n(const T (&v)[N],
+                                                  T *partials, int *ticket,
+                                                  T *sums, T *scratch) {
+  static_assert(N == 1 || N == 2, "one or two sums");
+  static_assert(W == 1 || W == 2 || W == 4, "1, 2 or 4 partials a round");
   __shared__ int is_last;
   if (threadIdx.x == 0) {
-    partials[2 * blockIdx.x] = a;
-    partials[2 * blockIdx.x + 1] = b;
+#pragma unroll
+    for (int n = 0; n < N; ++n) partials[N * blockIdx.x + n] = v[n];
     cuda::atomic_ref<int, cuda::thread_scope_device> t(*ticket);
     is_last = t.fetch_add(1, cuda::memory_order_acq_rel) ==
               static_cast<int>(gridDim.x) - 1;
   }
   __syncthreads();
   if (!is_last) return;
-  T s = T(0), t = T(0);
-  for (int k = threadIdx.x; k < static_cast<int>(gridDim.x);
-       k += blockDim.x) {
-    s += __ldcg(&partials[2 * k]);
-    t += __ldcg(&partials[2 * k + 1]);
+  const int g = gridDim.x, nt = blockDim.x;
+  T s[2] = {T(0), T(0)};
+  for (int k0 = threadIdx.x; k0 < g; k0 += W * nt) {
+    T x[W][N];
+#pragma unroll
+    for (int r = 0; r < W; ++r)
+#pragma unroll
+      for (int n = 0; n < N; ++n)
+        x[r][n] = k0 + r * nt < g ? __ldcg(&partials[N * (k0 + r * nt) + n])
+                                  : T(0);
+#pragma unroll
+    for (int step = 1; step < W; step *= 2)
+#pragma unroll
+      for (int r = 0; r + step < W; r += 2 * step)
+#pragma unroll
+        for (int n = 0; n < N; ++n) x[r][n] = x[r][n] + x[r + step][n];
+#pragma unroll
+    for (int n = 0; n < N; ++n) s[n] = s[n] + x[0][n];
   }
-  block_sum2(s, t, scratch);
+  block_sum2(s[0], s[1], scratch);
   if (threadIdx.x == 0) {
-    sums[0] = s;
-    sums[1] = t;
+#pragma unroll
+    for (int n = 0; n < N; ++n) sums[n] = s[n];
     *ticket = 0;
   }
+}
+
+// last_block_sums_n of two sums (a, b): partials [2 blocks], sums[0..1]
+template <int W = 1, typename T>
+__device__ __forceinline__ void last_block_sums(T a, T b, T *partials,
+                                                int *ticket, T *sums,
+                                                T *scratch) {
+  const T v[2] = {a, b};
+  last_block_sums_n<W>(v, partials, ticket, sums, scratch);
+}
+
+// last_block_sums_n of one sum a: partials [blocks], sums[0]
+template <int W = 1, typename T>
+__device__ __forceinline__ void last_block_sum(T a, T *partials, int *ticket,
+                                               T *sums, T *scratch) {
+  const T v[1] = {a};
+  last_block_sums_n<W>(v, partials, ticket, sums, scratch);
+}
+
+// (a) mod n for -n <= a < 2 n: a neighbour's coordinate on a circular
+// axis of n cells, at a shift reduced to |d| < n
+__device__ __forceinline__ int wrap_near(int a, int n) {
+  return a < 0 ? a + n : (a >= n ? a - n : a);
 }
 
 // runs launch() with `device` current, restoring the caller's device

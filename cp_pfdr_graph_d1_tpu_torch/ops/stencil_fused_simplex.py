@@ -9,21 +9,30 @@ simplex projection in the metric and the stopping sum, in one launch.
 
 :func:`fused_stencil_simplex_iteration` launches the CUDA kernel for tensors
 on a CUDA device and runs :func:`stencil_simplex_iteration_plain` for
-tensors on the CPU; there is no other fallback.  Each launch adds one to
-``fused_stencil_simplex_iteration.launches``.
+tensors on the CPU; there is no other fallback.  The kernel runs a thread a
+(cell, label) (:func:`launch_shape`).  A launch goes through a plan (shifts,
+stage constants, partials and the ticket that elects the block ending the
+sum), checked once and kept by the caller: on the graph
+(:meth:`..stencil.StencilGraphD1.fused_simplex_iteration`,
+``graph._simplex_plans``) or, for the standalone wrapper, in this module.
+Each launch adds one to ``fused_stencil_simplex_iteration.launches``.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
+import math
+import operator
 from typing import Tuple
 
 import torch
 
-from .. import _build
+from . import banded
 from .stencil_fused import MAX_FAMILIES
 
-# must equal kMaxLabels in csrc/stencil_fused_simplex.cu
+# kMaxLabels and kMaxSimplexThreads of csrc/stencil_fused_simplex.cu
 MAX_LABELS = 32
+MAX_THREADS = 1024
 
 _FIELDS = ("p", "q", "la_f", "ga", "ga_proj", "prev", "zu", "zv", "wu", "wv",
            "w_d1u", "w_d1v", "th_d1")
@@ -114,21 +123,49 @@ def stencil_simplex_iteration_plain(p, q, la_f, ga, ga_proj, prev, zu, zv,
     return pn, prev_new, torch.stack(zu_out), torch.stack(zv_out), dif
 
 
+def launch_shape(h: int, w: int, k: int):
+    """``(cells, threads, blocks)`` of a launch on an (H, W) field of K
+    labels: a block holds ``cells`` = 32 m consecutive cells (m = max(1,
+    8 // K)) times the K labels, thread ``t`` of block ``b`` takes label
+    ``t // cells`` of cell ``b cells + t % cells`` when that cell lies in
+    the field.  At 140 x 140, K = 4: 307 blocks of 256 threads."""
+    cells = 32 * max(1, 8 // k)
+    return cells, k * cells, -(-h * w // cells)
+
+
+class _Plan(ctypes.Structure):
+    """``SimplexPlan`` of ``csrc/stencil_fused_simplex.cu``."""
+    _fields_ = ([("partials", ctypes.c_void_p), ("ticket", ctypes.c_void_p)]
+                + [(n, ctypes.c_int) for n in ("h", "w", "k", "nf", "device",
+                                               "has_laf", "label_mode")]
+                + [("dy", ctypes.c_int * MAX_FAMILIES),
+                   ("dx", ctypes.c_int * MAX_FAMILIES)]
+                + [("rho", ctypes.c_double), ("al", ctypes.c_double)])
+
+
+@functools.cache
 def _lib():
-    lib = _build.cuda_kernels()
-    if not getattr(lib, "_cp_simplex_declared", False):
-        ptr, i, d = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
-        for name in ("cp_stencil_simplex_f32", "cp_stencil_simplex_f64"):
-            fn = getattr(lib, name)
-            fn.restype = i
-            fn.argtypes = [ptr] * 19 + [i, i, i, i, ptr, d, d, i, i, ptr]
-        lib.cp_stencil_simplex_partials_len.restype = i
-        lib.cp_stencil_simplex_partials_len.argtypes = [i, i]
-        lib.cp_stencil_simplex_max_labels.restype = i
-        lib.cp_stencil_simplex_max_labels.argtypes = []
-        if lib.cp_stencil_simplex_max_labels() != MAX_LABELS:
-            raise RuntimeError("MAX_LABELS disagrees with the CUDA source")
-        lib._cp_simplex_declared = True
+    """The kernels' library (:func:`.banded._lib`) with the entries
+    declared and the constants mirrored here checked against the CUDA
+    source."""
+    lib = banded._lib()
+    ptr = ctypes.c_void_p
+    for t in ("f32", "f64"):
+        fn = getattr(lib, f"cp_stencil_simplex_{t}")
+        fn.restype = ctypes.c_int
+        fn.argtypes = [ptr] * 19
+    lib.cp_stencil_simplex_plan_size.restype = ctypes.c_int
+    lib.cp_stencil_simplex_plan_size.argtypes = []
+    lib.cp_stencil_simplex_shape.restype = None
+    lib.cp_stencil_simplex_shape.argtypes = [ctypes.c_int] * 3 + [ptr]
+    shape = (ctypes.c_int * 5)()
+    for h, w, k in ((140, 140, 1), (140, 140, 4), (7, 9, 9), (3, 5, 32)):
+        lib.cp_stencil_simplex_shape(h, w, k, shape)
+        if tuple(shape) != (MAX_LABELS, MAX_FAMILIES) + launch_shape(h, w, k):
+            raise RuntimeError("ops/stencil_fused_simplex.py disagrees with "
+                               "csrc/stencil_fused_simplex.cu")
+    if lib.cp_stencil_simplex_plan_size() != ctypes.sizeof(_Plan):
+        raise RuntimeError("_Plan disagrees with csrc/stencil_fused_simplex.cu")
     return lib
 
 
@@ -160,6 +197,83 @@ def _check(arrays, shifts, label_mode):
             raise ValueError(f"{name} is not contiguous")
 
 
+_SIGNATURE = operator.attrgetter("dtype", "shape", "device")
+
+
+def plan_key(fields, shifts, *, rho: float, al: float, has_laf: bool,
+             label_mode: bool):
+    """Key of a launch plan: each field's dtype, shape and device (so the
+    type, K and the label mode's prev plane), the shifts and the stage's
+    constants (rho, the loss al, has_laf, label_mode)."""
+    return (tuple(map(_SIGNATURE, fields)), shifts, float(rho), float(al),
+            bool(has_laf), bool(label_mode))
+
+
+def _make_plan(plans, key, shifts, fields, rho, al, has_laf, label_mode):
+    """Checks the fields once for ``key`` and prepares the launch:
+    ``(C function, plan address, device index, output sizes, the plan and
+    its buffers)``, kept in ``plans``."""
+    _check(fields, shifts, label_mode)
+    lib = _lib()
+    p = fields[0]
+    k, h, w = p.shape
+    f = len(shifts)
+    partials = p.new_empty(launch_shape(h, w, k)[2])
+    ticket = torch.zeros(1, dtype=torch.int32, device=p.device)
+    pad = [0] * (MAX_FAMILIES - f)
+    # each shift reduced to |dy| < H, |dx| < W (the same circular shift)
+    dys = [int(math.fmod(dy, h)) for dy, _ in shifts]
+    dxs = [int(math.fmod(dx, w)) for _, dx in shifts]
+    plan = _Plan(partials.data_ptr(), ticket.data_ptr(), h, w, k, f,
+                 p.device.index, int(has_laf), int(label_mode),
+                 (ctypes.c_int * MAX_FAMILIES)(*dys, *pad),
+                 (ctypes.c_int * MAX_FAMILIES)(*dxs, *pad), float(rho),
+                 float(al))
+    sfx = "f32" if p.dtype == torch.float32 else "f64"
+    sizes = (f * k * h * w, k * h * w, fields[5].numel())
+    entry = (getattr(lib, f"cp_stencil_simplex_{sfx}"),
+             ctypes.addressof(plan), p.device.index, sizes,
+             (plan, partials, ticket))
+    plans[key] = entry
+    return entry
+
+
+def fused_stage(plans, shifts, fields, *, rho: float, al: float,
+                has_laf: bool, label_mode: bool):
+    """The kernel's iteration on CUDA ``fields`` (as
+    :func:`fused_stencil_simplex_iteration` takes them) through the plan
+    kept in the dict ``plans``: ``(p_new, prev_new, zu_new, zv_new,
+    dif_sum)``, views of one output tensor.  The checks run once per
+    :func:`plan_key`.  Two streams must not run an iteration through one
+    plan at once: they would share its ticket and partials."""
+    key = plan_key(fields, shifts, rho=rho, al=al, has_laf=has_laf,
+                   label_mode=label_mode)
+    entry = plans.get(key)
+    if entry is None:
+        entry = _make_plan(plans, key, shifts, fields, rho, al, has_laf,
+                           label_mode)
+    fn, plan, index, (nz, npn, nprev), _ = entry
+    if not all(map(torch.Tensor.is_contiguous, fields)):
+        raise ValueError("stencil_fused_simplex: a field is not contiguous")
+    p, prev, zu = fields[0], fields[5], fields[6]
+    out = p.new_empty(2 * nz + npn + nprev + 2)
+    base, size = out.data_ptr(), out.element_size()
+    rc = fn(plan, *[a.data_ptr() for a in fields], base + 2 * nz * size,
+            base + (2 * nz + npn) * size, base,
+            base + (2 * nz + npn + nprev) * size, banded._raw_stream(index))
+    if rc != 0:
+        raise RuntimeError(f"stencil_fused_simplex launch failed (CUDA "
+                           f"error {rc})")
+    fused_stencil_simplex_iteration.launches += 1
+    z = out.narrow(0, 0, 2 * nz).view((2,) + tuple(zu.shape))
+    return (out.narrow(0, 2 * nz, npn).view(p.shape),
+            out.narrow(0, 2 * nz + npn, nprev).view(prev.shape), z[0], z[1],
+            out[2 * nz + npn + nprev])
+
+
+_plans: dict = {}
+
+
 def fused_stencil_simplex_iteration(p, q, la_f, ga, ga_proj, prev, zu, zv,
                                     wu, wv, w_d1u, w_d1v, th_d1, *,
                                     shifts: Tuple, rho: float, al: float,
@@ -184,36 +298,11 @@ def fused_stencil_simplex_iteration(p, q, la_f, ga, ga_proj, prev, zu, zv,
     """
     arrays = (p, q, la_f, ga, ga_proj, prev, zu, zv, wu, wv, w_d1u, w_d1v,
               th_d1)
-    kw = dict(shifts=shifts, rho=rho, al=al, has_laf=has_laf,
-              label_mode=label_mode)
+    kw = dict(rho=rho, al=al, has_laf=has_laf, label_mode=label_mode)
     if not p.is_cuda:
-        return stencil_simplex_iteration_plain(*arrays, **kw)
-    _check(arrays, shifts, label_mode)
-    lib = _lib()
-    k, h, w = p.shape
-    po = torch.empty_like(p)
-    prevo = torch.empty_like(prev)
-    zuo = torch.empty_like(zu)
-    zvo = torch.empty_like(zv)
-    partials = torch.empty(lib.cp_stencil_simplex_partials_len(h, w),
-                           dtype=p.dtype, device=p.device)
-    dif = torch.empty((), dtype=p.dtype, device=p.device)
-    flat = [int(v) for dydx in shifts for v in dydx]
-    shifts_c = (ctypes.c_int * len(flat))(*flat)
-    fn = (lib.cp_stencil_simplex_f32 if p.dtype == torch.float32
-          else lib.cp_stencil_simplex_f64)
-    with torch.cuda.device(p.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = fn(*[a.data_ptr() for a in arrays], po.data_ptr(),
-                prevo.data_ptr(), zuo.data_ptr(), zvo.data_ptr(),
-                partials.data_ptr(), dif.data_ptr(), h, w, k, len(shifts),
-                shifts_c, float(rho), float(al), int(has_laf),
-                int(label_mode), stream)
-    if rc != 0:
-        raise RuntimeError(f"stencil_fused_simplex launch failed (CUDA "
-                           f"error {rc})")
-    fused_stencil_simplex_iteration.launches += 1
-    return po, prevo, zuo, zvo, dif
+        return stencil_simplex_iteration_plain(*arrays, shifts=shifts, **kw)
+    shifts = tuple((int(dy), int(dx)) for dy, dx in shifts)
+    return fused_stage(_plans, shifts, arrays, **kw)
 
 
 fused_stencil_simplex_iteration.launches = 0

@@ -19,7 +19,7 @@ import torch
 from .config import numpy_dtype
 from .graph import GraphD1
 from .ops.stencil_fused import fused_stage, stencil_iteration_plain
-from .ops.stencil_fused_simplex import fused_stencil_simplex_iteration
+from .ops import stencil_fused_simplex
 
 
 class StencilGraphD1(GraphD1):
@@ -40,6 +40,9 @@ class StencilGraphD1(GraphD1):
         self._incidence = None
         # stage_key -> stencil_fused's launch plan (ops/stencil_fused.py)
         self._stage_plans = {}
+        # plan_key -> stencil_fused_simplex's launch plan
+        # (ops/stencil_fused_simplex.py)
+        self._simplex_plans = {}
 
     @classmethod
     def create(cls, field_shape, shift_weights, wrap=(False, False),
@@ -164,11 +167,17 @@ class StencilGraphD1(GraphD1):
                                 al: float, has_laf: bool, label_mode: bool):
         """One fused multi-label PFDR step on ``[K, H, W]`` label planes and
         ``[F, K, H, W]`` edge planes (see
-        :func:`..ops.stencil_fused_simplex.fused_stencil_simplex_iteration`)."""
-        return fused_stencil_simplex_iteration(
-            p, q, la_f, ga, ga_proj, prev, zu, zv, wu, wv, w_d1u, w_d1v,
-            th_d1, shifts=self.shifts, rho=rho, al=al, has_laf=has_laf,
-            label_mode=label_mode)
+        :func:`..ops.stencil_fused_simplex.fused_stencil_simplex_iteration`).
+        On CUDA tensors it launches through the plan kept in
+        ``_simplex_plans``."""
+        fields = (p, q, la_f, ga, ga_proj, prev, zu, zv, wu, wv, w_d1u,
+                  w_d1v, th_d1)
+        kw = dict(rho=rho, al=al, has_laf=has_laf, label_mode=label_mode)
+        if p.is_cuda:
+            return stencil_fused_simplex.fused_stage(
+                self._simplex_plans, self.shifts, fields, **kw)
+        return stencil_fused_simplex.stencil_simplex_iteration_plain(
+            *fields, shifts=self.shifts, **kw)
 
     # label planes of the multi-label kernel loop
 
