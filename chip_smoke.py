@@ -106,6 +106,25 @@ It imports nothing of JAX.  Phases, one or more lines each:
    ``cp-sharded``, ``cp-sharded-simplex``; cut as ``p2_cuts`` prints).
    The single-card solves these are held against run before the counted
    window, and the P = 1 busy share is profiled after it.
+14. slice 11, four more main paths, their float64 references made on the
+   card before the counted windows: ``cp-device-mesh`` (``cut="device"``
+   cut-pursuit on the mesh as a COO ``GraphD1`` and as a
+   ``BandedGraphD1``: the plain PDHG cut and components on the card, the
+   banded graph's float transfers through ``banded_gather`` /
+   ``banded_scatter``; at most 1e-3 above the float64 host cut; ms per CP
+   iteration, PDHG steps per cut and component rounds per call);
+   ``route-fallback`` (a 140 x 140 stencil of 17 shift families through
+   PFDR and ``cut="device"`` cut-pursuit, K = 33 multi-label PFDR on the
+   140 x 140 stencil and on the mesh's ``CirculantGraphD1``, all on the
+   default options: the staged loops and plain cuts, none of the kernels
+   these inputs are beyond, held against float64 at 1e-3; ``fused="on"``
+   raises on each PFDR input); ``cp-duplex-device`` (the EEG problem
+   through ``cut="device", duplex=True``, ``components_fused`` and the
+   plain duplex cut, against the host duplex cut at 1e-3; and the
+   per-iteration device loop without duplex, timed); ``checkpoint``
+   (``utils.save_state`` / ``load_state`` of a float64 PFDR state resumed
+   on the card bit for bit, of a cut-pursuit state, and ``utils.profile``
+   leaving a trace).
 
 ``python3 chip_smoke.py --compare`` runs only ``compare_timings`` (the
 ``stencil_fused_simplex`` and ``components_fused`` calls, the
@@ -3799,6 +3818,524 @@ def report_p2(outs, ref, pb):
     return gaps
 
 
+# ---------------------------------------------------------------------------
+# slice 11: the plain device cut on every container, the routes of inputs
+# the kernels do not take, the duplex device cut, checkpoints
+# ---------------------------------------------------------------------------
+
+# 17 shift families, one more than the stencil kernels take: the
+# neighbourhood of radius 3 (the cells (dy, dx) with dy > 0, or dy = 0 and
+# dx > 0, up to 17 of them)
+SHIFTS_17 = ((0, 1), (1, 0), (1, 1), (1, -1), (0, 2), (2, 0), (2, 1),
+             (1, 2), (2, -1), (1, -2), (2, 2), (2, -2), (0, 3), (3, 0),
+             (3, 1), (1, 3), (3, -1))
+# the denoising cut-pursuit's TV weight per vertex (4 edges of 0.35)
+# spread over the 34 edges of the 17 families
+ROUTE_TV = 0.35 * 2 / 17
+K_ROUTE = 33          # one more label than the multi-label kernels take
+ROUTE_ITERS = 1000    # PFDR iterations of the F = 17 solve
+ROUTE_SIMPLEX_ITERS = 300
+# the kernels the route-fallback path must not launch
+ROUTE_AVOIDS = ("stencil_fused", "mincut_fused", "components_fused",
+                "stencil_fused_simplex", "circulant_fused_simplex")
+
+
+class CutRecorder:
+    """Within a ``with`` block, records the PDHG steps and host-clock
+    milliseconds of each plain device cut (``steps``, ``cut_ms``: the
+    undirected and duplex loops of ``maxflow.device``) and the rounds and
+    milliseconds of each plain components call (``rounds``, ``comp_ms``:
+    one ``edge_to_vertex_min`` a round) that the device loop of
+    ``solvers.cut_pursuit_device`` makes; each call is timed between two
+    synchronisations of the card."""
+
+    NAMES = ("_pdhg_min_cut", "_pdhg_min_cut_duplex",
+             "connected_components_device")
+
+    def __enter__(self):
+        import torch
+        from cp_pfdr_graph_d1_tpu_torch.solvers import \
+            cut_pursuit_device as cpd
+        self.steps, self.rounds, self.cut_ms, self.comp_ms = [], [], [], []
+        self._cpd = cpd
+        self._saved = {n: getattr(cpd, n) for n in self.NAMES}
+
+        def timed(ms, fn, *args):
+            if args[1].is_cuda:
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args)
+            if args[1].is_cuda:
+                torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            return out
+
+        def cut(fn):
+            def recording(*args):
+                out = timed(self.cut_ms, fn, *args)
+                self.steps.append(int(out[2]))
+                return out
+            return recording
+
+        def components(graph, mask, it_max=None):
+            calls = []
+            reduce_min = graph.edge_to_vertex_min
+
+            def counting(*args):
+                calls.append(1)
+                return reduce_min(*args)
+
+            graph.edge_to_vertex_min = counting
+            try:
+                return timed(self.comp_ms,
+                             self._saved["connected_components_device"],
+                             graph, mask, it_max)
+            finally:
+                del graph.edge_to_vertex_min
+                self.rounds.append(len(calls))
+
+        cpd._pdhg_min_cut = cut(self._saved["_pdhg_min_cut"])
+        cpd._pdhg_min_cut_duplex = cut(self._saved["_pdhg_min_cut_duplex"])
+        cpd.connected_components_device = components
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self._saved.items():
+            setattr(self._cpd, name, fn)
+
+    def summary(self):
+        steps = self.steps or [0]
+        rounds = self.rounds or [0]
+        cut_ms, comp_ms = sum(self.cut_ms), sum(self.comp_ms)
+        return (f"{len(self.steps)} plain cuts of {np.mean(steps):.0f} PDHG "
+                f"steps on average (most {max(steps)}), {cut_ms:.1f} ms in "
+                f"all, {cut_ms / max(len(self.steps), 1):.2f} ms a cut, "
+                f"{cut_ms * 1e3 / max(sum(self.steps), 1):.1f} us a step; "
+                f"{len(self.rounds)} plain components calls of "
+                f"{np.mean(rounds):.1f} rounds on average (most "
+                f"{max(rounds)}), {comp_ms:.1f} ms in all")
+
+
+def lasso_cp(graph, a, y, dtype, device="cuda", **opt):
+    """The EEG problem's cut-pursuit (``chain_options``, l1 with
+    positivity) of ``(a, y)`` on ``graph``, with ``opt`` replacing options
+    (``cut``, ``chain``, ``it_max``) and ``duplex`` or ``state`` passed
+    through: ``(seconds, result)``."""
+    import torch
+    from cp_pfdr_graph_d1_tpu_torch import DenseOp
+    from cp_pfdr_graph_d1_tpu_torch.solvers.cut_pursuit import \
+        cp_quadratic_d1
+    kw = {k: opt.pop(k) for k in ("duplex", "state") if k in opt}
+    npd = np.float64 if dtype == torch.float64 else np.float32
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = cp_quadratic_d1(
+        DenseOp(torch.as_tensor(a.astype(npd), device=device)),
+        torch.as_tensor(y.astype(npd), device=device), graph,
+        la_l1=np.full(a.shape[1], LA_L1, npd), positivity=True,
+        opt=dataclasses.replace(chain_options(), **opt), **kw)
+    return time.perf_counter() - t0, res
+
+
+def cp_objective(res, a, y, graph):
+    eu, ev, la = graph.host_coo()
+    return objective(res.rx[res.cv], a, y, eu, ev, la.astype(np.float64))
+
+
+def mesh_coo(dtype, device):
+    """The mesh as a COO ``GraphD1``."""
+    from cp_pfdr_graph_d1_tpu_torch import GraphD1
+    eu, ev, _, _ = build_mesh_problem()
+    return GraphD1.create(eu, ev, LA_D1, num_vertices=V_SIDE * V_SIDE,
+                          dtype=dtype, device=device)
+
+
+def mesh_cp_reference(device="cuda"):
+    """The float64 host-cut solve of the mesh cut-pursuit on the card that
+    ``cp-device-mesh`` is held against (outside the counted windows):
+    ``(objective, seconds)``."""
+    import torch
+    _, _, a, y = build_mesh_problem()
+    g = mesh_coo(torch.float64, device)
+    t, res = lasso_cp(g, a, y, torch.float64, device, cut="host")
+    f = cp_objective(res, a, y, g)
+    print(f"[cp-device-mesh] float64 host-cut reference on the card: "
+          f"{res.it} CP iterations, {len(res.rx)} components, objective "
+          f"{f:.9g} ({t * 1e3:.1f} ms)", flush=True)
+    return f
+
+
+def phase_cp_device_mesh(f64, device="cuda"):
+    """Main path: the device cut-pursuit (``cut="device"``, the chained
+    loop's options; ``chain="auto"`` takes the per-iteration loop off a
+    stencil) on ``bench.py``'s 19,600-point Delaunay mesh, float32, on a
+    COO ``GraphD1`` (the plain cut and components on the card) and on a
+    ``BandedGraphD1`` (the same loops, their float gathers and sums through
+    ``banded_gather`` / ``banded_scatter``); each at most 1e-3 above the
+    float64 host cut, beside the float32 host cut on the same mesh."""
+    import torch
+    eu, ev, a, y = build_mesh_problem()
+    f32 = torch.float32
+    g = mesh_coo(f32, device)
+    t_host, res_host = lasso_cp(g, a, y, f32, device, cut="host")
+    f_host = cp_objective(res_host, a, y, g)
+    print(f"[cp-device-mesh] float32 host cut on the card, COO GraphD1: "
+          f"{t_host * 1e3:.1f} ms, {res_host.it} CP iterations, "
+          f"{len(res_host.rx)} components, objective {f_host:.9g}",
+          flush=True)
+    out = {"host_ms": t_host * 1e3}
+    for kind in ("coo", "banded"):
+        g = mesh_coo(f32, device) if kind == "coo" else mesh_graph(
+            "banded", f32, device)
+        before = read_counts()
+        with CutRecorder() as rec:
+            t, res = lasso_cp(g, a, y, f32, device, cut="device")
+        grew = {k: v - before[k] for k, v in read_counts().items()}
+        f = cp_objective(res, a, y, g)
+        check(np.all(np.isfinite(res.rx)) and res.cv.shape == (a.shape[1],),
+              f"cp-device-mesh {kind}: result not finite or misshapen")
+        cuts = len(rec.steps)
+        print(f"[cp-device-mesh] float32 {type(g).__name__}, cut='device' "
+              f"chain='auto' (per-iteration loop): {t * 1e3:.1f} ms, "
+              f"{res.it} CP iterations, {t * 1e3 / max(res.it, 1):.1f} ms "
+              f"per CP iteration, {len(res.rx)} components; "
+              f"{rec.summary()}; {sum(rec.steps)} PDHG steps in all; "
+              f"objective {f:.9g} against float64 {f64:.9g} (rel "
+              f"{(f - f64) / abs(f64):.2e}); launches +{grew}", flush=True)
+        check(f <= f64 * (1 + 1e-3), f"cp-device-mesh {kind}: objective {f} "
+              f"more than 1e-3 above the float64 host cut's {f64}")
+        check(cuts > 0 and rec.rounds, f"cp-device-mesh {kind}: the plain "
+              f"cut or components did not run")
+        check(grew["mincut_fused"] == 0 and grew["components_fused"] == 0,
+              f"cp-device-mesh {kind}: a stencil kernel ran on the mesh")
+        if kind == "banded":
+            check(grew["banded_gather"] > 0 and grew["banded_scatter"] > 0,
+                  f"cp-device-mesh: the banded transfers were not launched: "
+                  f"{grew}")
+        out[kind] = dict(ms=t * 1e3, it=res.it, cuts=cuts,
+                         steps=sum(rec.steps), rounds=rec.rounds,
+                         launches=grew)
+    return out
+
+
+def route_stencil(dtype, device, weight=LA_D1):
+    """The 140 x 140 stencil of 17 shift families."""
+    from cp_pfdr_graph_d1_tpu_torch import StencilGraphD1
+    return StencilGraphD1.create((V_SIDE, V_SIDE),
+                                 {s: weight for s in SHIFTS_17}, dtype=dtype,
+                                 device=device)
+
+
+def route_cp(dtype, device):
+    """TV denoising (``denoise_problem`` at 140 x 140, ``IdentityOp``; the
+    ``cp-device`` path's options) on the 17-family stencil of weight
+    ``ROUTE_TV``, through ``cut="device"`` with ``chain="auto"``:
+    ``(seconds, result, objective, graph)``.  (The EEG problem on 17
+    families of ``LA_D1`` oscillates between partitions for all of its 15
+    CP iterations, and float32 and float64 part by 6e-3 after 6 of them.)"""
+    import torch
+    from cp_pfdr_graph_d1_tpu_torch import CPOptions, IdentityOp, PFDROptions
+    from cp_pfdr_graph_d1_tpu_torch.solvers.cut_pursuit import \
+        cp_quadratic_d1
+    y = denoise_problem(V_SIDE)
+    g = route_stencil(dtype, device, ROUTE_TV)
+    opt = CPOptions(dif_tol=1e-4, it_max=4,
+                    pfdr=PFDROptions(rho=1.8, dif_tol=1e-5, it_max=2000),
+                    cut="device", chain="auto", cut_tol=1e-5,
+                    cut_it_max=50_000)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = cp_quadratic_d1(IdentityOp(), torch.as_tensor(
+        y, dtype=dtype, device=device), g, opt=opt)
+    t = time.perf_counter() - t0
+    x = res.rx[res.cv].astype(np.float64)
+    eu, ev, la = g.host_coo()
+    f = 0.5 * np.sum((x - y) ** 2) + np.sum(la * np.abs(x[eu] - x[ev]))
+    return t, res, float(f), g
+
+
+def route_pfdr(dtype, device, iters=ROUTE_ITERS, fused="auto"):
+    """The EEG problem's PFDR on the 17-family stencil (l1 with
+    positivity, rho = 1.5, dif_tol = 0)."""
+    import torch
+    from cp_pfdr_graph_d1_tpu_torch import (DenseOp, PFDROptions,
+                                            VertexProx, pfdr_quadratic_d1)
+    a, y = build_grid_problem()
+    npd = np.float64 if dtype == torch.float64 else np.float32
+    lip = float(np.linalg.eigvalsh((a @ a.T).astype(np.float64))[-1])
+    return pfdr_quadratic_d1(
+        DenseOp(torch.as_tensor(a.astype(npd), device=device)),
+        torch.as_tensor(y.astype(npd), device=device),
+        route_stencil(dtype, device),
+        la_l1=torch.full((a.shape[1],), LA_L1, dtype=dtype, device=device),
+        vprox=VertexProx(kind="l1", positivity=True), lipsch=lip,
+        opt=PFDROptions(rho=1.5, dif_tol=0.0, it_max=iters, fused=fused))
+
+
+def route_simplex(kind, dtype, device, iters=ROUTE_SIMPLEX_ITERS,
+                  fused="auto"):
+    """K = 33 multi-label PFDR (al = 1, rho = 1.5, dif_tol = 0) on the
+    140 x 140 F = 2 stencil or on the mesh's ``CirculantGraphD1`` (edge
+    weights ``LA_SIMPLEX``), observations Dirichlet(0.5) from seed 11."""
+    import torch
+    from cp_pfdr_graph_d1_tpu_torch import (PFDROptions, StencilGraphD1,
+                                            pfdr_loss_d1_simplex)
+    if kind == "stencil":
+        g = StencilGraphD1.create(
+            (V_SIDE, V_SIDE), {(0, 1): LA_SIMPLEX, (1, 0): LA_SIMPLEX},
+            dtype=dtype, device=device)
+    else:
+        g = mesh_graph("circulant", dtype, device, la=LA_SIMPLEX)
+    q = np.random.default_rng(11).dirichlet(np.full(K_ROUTE, 0.5),
+                                            size=V_SIDE * V_SIDE)
+    return pfdr_loss_d1_simplex(
+        g, torch.as_tensor(q, dtype=dtype, device=device), al=1.0,
+        opt=PFDROptions(rho=1.5, dif_tol=0.0, it_max=iters, fused=fused))
+
+
+def route_references(device="cuda"):
+    """The float64 solves on the card that ``route-fallback`` is held
+    against (outside the counted windows), each through the float32
+    solve's own route: the F = 17 PFDR iterate and the K = 33 label fields
+    of the staged loops, and the objective of the F = 17 cut-pursuit's
+    per-iteration device loop (which stops at ``it_max`` before it
+    converges, so a host-cut solve is no reference: another cut order
+    stops elsewhere)."""
+    import torch
+    f64 = torch.float64
+    t0 = time.perf_counter()
+    x64 = route_pfdr(f64, device).x.cpu()
+    p64 = {kind: route_simplex(kind, f64, device).p.cpu()
+           for kind in ("stencil", "mesh")}
+    _, res, f_cp, _ = route_cp(f64, device)
+    print(f"[route-fallback] float64 references on the card "
+          f"({time.perf_counter() - t0:.1f} s): the F=17 cut-pursuit's device "
+          f"loop {res.it} CP iterations, {len(res.rx)} components, objective "
+          f"{f_cp:.9g}", flush=True)
+    return x64, p64, f_cp
+
+
+def phase_route_fallback(refs, device="cuda"):
+    """Main path: inputs the kernels do not take, on the default options,
+    float32 on the card: PFDR (the EEG problem) and ``cut="device"``
+    cut-pursuit (``chain="auto"``, :func:`route_cp`) on a 140 x 140 stencil
+    of 17 shift families, K = 33
+    multi-label PFDR on the 140 x 140 stencil and on the mesh's
+    ``CirculantGraphD1``.  Each takes the staged loop or the plain cut and
+    components, launches none of ``ROUTE_AVOIDS``, and is held against
+    float64 on the card (PFDR max |x - x64| <= 1e-3; cut-pursuit objective
+    within 1e-3 relative); ``fused="on"`` raises ``ValueError`` on each of
+    the three PFDR inputs."""
+    import torch
+    from cp_pfdr_graph_d1_tpu_torch import IdentityOp
+    from cp_pfdr_graph_d1_tpu_torch.solvers.cut_pursuit_chain import \
+        chain_admissible
+    x64, p64, f_cp64 = refs
+    f32 = torch.float32
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = route_pfdr(f32, device)
+    x = res.x.cpu()
+    t = time.perf_counter() - t0
+    err = max_err(x, x64)
+    print(f"[route-fallback] float32 PFDR, {V_SIDE}x{V_SIDE} stencil F=17, "
+          f"fused='auto' (staged loop): {res.it} iterations, "
+          f"{t * 1e6 / res.it:.2f} us/iteration; max|x - x float64| "
+          f"{err:.3e} (tol 1e-3)", flush=True)
+    check(res.it == ROUTE_ITERS and bool(torch.isfinite(x).all()),
+          "route-fallback: F=17 PFDR short or not finite")
+    check(err <= 1e-3, f"route-fallback: F=17 PFDR float32 vs float64 "
+          f"{err:.3g}")
+
+    with CutRecorder() as rec:
+        t, res, f, g = route_cp(f32, device)
+    check(not chain_admissible(IdentityOp(), g, chain_options(), False,
+                               False, torch.zeros(1, device=device)),
+          "route-fallback: chain='auto' admits the F=17 stencil")
+    print(f"[route-fallback] float32 TV denoising cut-pursuit, F=17 stencil,"
+          f" cut='device' chain='auto' (per-iteration loop, plain cut and "
+          f"components): "
+          f"{t * 1e3:.1f} ms, {res.it} CP iterations, {len(res.rx)} "
+          f"components; {rec.summary()}; objective {f:.9g} against "
+          f"float64's {f_cp64:.9g} (rel "
+          f"{(f - f_cp64) / abs(f_cp64):.2e}, tol 1e-3)", flush=True)
+    check(rec.steps and rec.rounds, "route-fallback: the F=17 cut-pursuit "
+          "did not run the plain cut and components")
+    check(abs(f - f_cp64) <= 1e-3 * abs(f_cp64), f"route-fallback: F=17 "
+          f"cut-pursuit objective {f} vs float64 {f_cp64}")
+
+    for kind in ("stencil", "mesh"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = route_simplex(kind, f32, device)
+        p = res.p.cpu()
+        t = time.perf_counter() - t0
+        err = max_err(p, p64[kind])
+        where = (f"{V_SIDE}x{V_SIDE} stencil" if kind == "stencil"
+                 else "mesh's CirculantGraphD1")
+        print(f"[route-fallback] float32 K={K_ROUTE} multi-label PFDR on the "
+              f"{where}, fused='auto' (staged loop): {res.it} iterations, "
+              f"{t * 1e6 / res.it:.2f} us/iteration; max|p - p float64| "
+              f"{err:.3e} (tol 1e-3)", flush=True)
+        check(res.it == ROUTE_SIMPLEX_ITERS and bool(torch.isfinite(p).all())
+              and p.shape == (V_SIDE * V_SIDE, K_ROUTE),
+              f"route-fallback: K={K_ROUTE} {kind} result short, not finite "
+              f"or misshapen")
+        check(err <= 1e-3, f"route-fallback: K={K_ROUTE} {kind} float32 vs "
+              f"float64 {err:.3g}")
+
+    for what, solve in (
+            ("F=17 PFDR", lambda: route_pfdr(f32, device, 2, fused="on")),
+            (f"K={K_ROUTE} stencil", lambda: route_simplex(
+                "stencil", f32, device, 2, fused="on")),
+            (f"K={K_ROUTE} mesh", lambda: route_simplex(
+                "mesh", f32, device, 2, fused="on"))):
+        try:
+            solve()
+        except ValueError as e:
+            print(f"[route-fallback] {what} with fused='on' raises "
+                  f"ValueError: {e}", flush=True)
+        else:
+            check(False, f"route-fallback: {what} with fused='on' did not "
+                  f"raise")
+
+
+def phase_cp_duplex_device(device="cuda"):
+    """Main path: the EEG problem through the duplex device loop
+    (``cut="device", duplex=True``: the plain two-layer PDHG cut,
+    ``components_fused`` for the components), float32, against the host
+    duplex cut (``cut="host", duplex=True``) at 1e-3 relative; then the
+    per-iteration device loop without duplex (``chain="off"``) timed once
+    on the same problem, beside the chained loop of ``cp-chain``."""
+    import torch
+    g, a, y = eeg_host_cut(device)
+    f32 = torch.float32
+    t_h, res_h = lasso_cp(g, a, y, f32, device, cut="host", duplex=True)
+    f_h = cp_objective(res_h, a, y, g)
+    before = read_counts()
+    with CutRecorder() as rec:
+        t_d, res_d = lasso_cp(g, a, y, f32, device, cut="device",
+                              duplex=True)
+    grew = {k: v - before[k] for k, v in read_counts().items()}
+    f_d = cp_objective(res_d, a, y, g)
+    print(f"[cp-duplex-device] float32 {V_SIDE}x{V_SIDE} EEG, cut='device' "
+          f"duplex=True: {t_d * 1e3:.1f} ms, {res_d.it} CP iterations, "
+          f"{len(res_d.rx)} components; {rec.summary()}; objective "
+          f"{f_d:.9g} against the host duplex cut's {f_h:.9g} ({t_h * 1e3:.1f}"
+          f" ms, {res_h.it} CP iterations; rel {(f_d - f_h) / abs(f_h):.2e}, "
+          f"tol 1e-3); launches +{grew}", flush=True)
+    check(np.all(np.isfinite(res_d.rx)) and res_d.cv.shape == (a.shape[1],),
+          "cp-duplex-device: result not finite or misshapen")
+    check(grew["components_fused"] > 0 and grew["mincut_fused"] == 0,
+          f"cp-duplex-device: components_fused not launched, or a "
+          f"mincut_fused launch in the duplex loop: {grew}")
+    check(rec.steps and not rec.rounds, "cp-duplex-device: the plain duplex "
+          "cut did not run, or the components left the kernel")
+    check(abs(f_d - f_h) <= 1e-3 * abs(f_h), f"cp-duplex-device: objective "
+          f"{f_d} vs the host duplex cut's {f_h}")
+    t_off, res_off = lasso_cp(g, a, y, f32, device, cut="device",
+                              chain="off")
+    f_off = cp_objective(res_off, a, y, g)
+    print(f"[cp-duplex-device] the same problem without duplex through the "
+          f"per-iteration device loop (cut='device' chain='off'): "
+          f"{t_off * 1e3:.1f} ms, {res_off.it} CP iterations, objective "
+          f"{f_off:.9g}", flush=True)
+    return dict(ms=t_d * 1e3, host_ms=t_h * 1e3, off_ms=t_off * 1e3,
+                steps=rec.steps)
+
+
+def phase_checkpoint(device="cuda"):
+    """Main path: checkpoints on the card.  A float64 PFDR on the EEG
+    stencil (``stencil_fused``) stopped at iteration 500, saved with
+    ``utils.save_state``, loaded onto the card with ``utils.load_state``
+    and resumed to 1000 equals the uninterrupted 1000 bit for bit.  The EEG
+    host-cut cut-pursuit's ``CPState`` after 3 CP iterations, saved and
+    loaded, resumes exactly as from the state in memory, and that resume
+    over the remaining CP iterations reaches the uninterrupted solve's
+    objective within 1e-4 relative (the state holds no reduced-solve
+    history, so the trajectories differ by rounding, as in the JAX
+    package).  ``utils.profile`` around one PFDR
+    call leaves a trace file."""
+    import tempfile
+    import torch
+    from cp_pfdr_graph_d1_tpu_torch import (DenseOp, PFDROptions,
+                                            StencilGraphD1, VertexProx,
+                                            pfdr_quadratic_d1)
+    from cp_pfdr_graph_d1_tpu_torch.utils import (load_state, profile,
+                                                  save_state)
+    a, y = build_grid_problem()
+    f64 = torch.float64
+    g = StencilGraphD1.create((V_SIDE, V_SIDE), {(0, 1): LA_D1, (1, 0): LA_D1},
+                              dtype=f64, device=device)
+    lip = float(np.linalg.eigvalsh((a @ a.T).astype(np.float64))[-1])
+    op = DenseOp(torch.as_tensor(a.astype(np.float64), device=device))
+    obs = torch.as_tensor(y.astype(np.float64), device=device)
+    la_l1 = torch.full((g.num_vertices,), LA_L1, dtype=f64, device=device)
+
+    def solve(it_max, **kw):
+        return pfdr_quadratic_d1(
+            op, obs, g, la_l1=la_l1,
+            vprox=VertexProx(kind="l1", positivity=True), lipsch=lip,
+            opt=PFDROptions(rho=1.5, dif_tol=0.0, it_max=it_max), **kw)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        full = solve(1000)
+        _, mid = solve(500, return_state=True)
+        path = os.path.join(tmp, "pfdr.npz")
+        save_state(path, mid)
+        loaded = load_state(path, device=device)
+        check(loaded.it == 500 and loaded.x.is_cuda and loaded.pre.ga.is_cuda,
+              "checkpoint: the loaded PFDR state is not on the card")
+        rest = solve(1000, state0=loaded)
+        same = rest.it == full.it == 1000 and torch.equal(rest.x, full.x)
+        print(f"[checkpoint] float64 PFDR on the EEG stencil: 500 + 500 "
+              f"iterations through an .npz ({os.path.getsize(path)} bytes) "
+              f"{'equal' if same else 'differ from'} the uninterrupted 1000 "
+              f"bit for bit (max|diff| {max_err(rest.x, full.x):.3e})",
+              flush=True)
+        check(same, "checkpoint: the resumed PFDR differs from the "
+              "uninterrupted solve")
+
+        ge, _, _ = eeg_host_cut(device)
+        f32 = torch.float32
+        _, uninterrupted = lasso_cp(ge, a, y, f32, device, cut="host")
+        _, first = lasso_cp(ge, a, y, f32, device, cut="host", it_max=3)
+        cp_path = os.path.join(tmp, "cp.npz")
+        save_state(cp_path, first.state)
+        state = load_state(cp_path)
+        # the rest of the uninterrupted solve's CP iterations
+        more = dict(cut="host", it_max=uninterrupted.it - first.it)
+        _, from_file = lasso_cp(ge, a, y, f32, device, state=state, **more)
+        _, from_memory = lasso_cp(ge, a, y, f32, device, state=first.state,
+                                  **more)
+        f_full = cp_objective(uninterrupted, a, y, ge)
+        f_res = cp_objective(from_file, a, y, ge)
+        exact = (np.array_equal(from_file.cv, from_memory.cv)
+                 and np.array_equal(from_file.rx, from_memory.rx))
+        print(f"[checkpoint] EEG host-cut cut-pursuit: 3 CP iterations, "
+              f"CPState through an .npz, then {from_file.it} more: "
+              f"{'equal to' if exact else 'differs from'} the resume from "
+              f"memory; objective {f_res:.9g} against the uninterrupted "
+              f"{f_full:.9g} ({uninterrupted.it} CP iterations; rel "
+              f"{(f_res - f_full) / abs(f_full):.2e}, tol 1e-4)", flush=True)
+        check(exact and all(np.array_equal(getattr(state, k),
+                                           getattr(first.state, k))
+                            for k in ("active", "cv", "rx")),
+              "checkpoint: the CPState from the file resumes otherwise than "
+              "the state in memory")
+        check(abs(f_res - f_full) <= 1e-4 * abs(f_full), f"checkpoint: the "
+              f"resumed cut-pursuit's objective {f_res} vs {f_full}")
+
+        trace_dir = os.path.join(tmp, "trace")
+        with profile(trace_dir):
+            solve(100)
+        files = os.listdir(trace_dir) if os.path.isdir(trace_dir) else []
+        print(f"[checkpoint] utils.profile around a 100-iteration PFDR "
+              f"wrote {files} ({sum(os.path.getsize(os.path.join(trace_dir, n)) for n in files)} bytes)",
+              flush=True)
+        check(len(files) > 0, "checkpoint: profile() left no trace file")
+
+
 def bound(nbytes, flops):
     """``(bound_ms, bound_by)``: the larger of the bytes over the memory
     rate and the float32 operations over the float32 rate."""
@@ -3854,6 +4391,9 @@ def main():
     # and the single-card solves the distributed paths are held against
     halo_ref = halo_references()
     p2_ref = p2_references()
+    # and the float64 solves of slice 11's paths
+    mesh_cp64 = mesh_cp_reference()
+    route_ref = route_references()
 
     # the main paths: each with the counts set to 0 just before it and read
     # just after; each must have launched the kernels it runs
@@ -3877,9 +4417,17 @@ def main():
              ("pfdr-mesh-simplex", phase_pfdr_mesh_simplex, (p_mesh64,),
               ("circulant_fused_simplex",)),
              ("pfdr-halo", phase_pfdr_halo, (halo_ref, p2_ref),
-              ("halo_fused",)))
+              ("halo_fused",)),
+             ("cp-device-mesh", phase_cp_device_mesh, (mesh_cp64,),
+              ("banded_gather", "banded_scatter")),
+             # launches none of the kernels its inputs are beyond
+             ("route-fallback", phase_route_fallback, (route_ref,), (),
+              ROUTE_AVOIDS),
+             ("cp-duplex-device", phase_cp_duplex_device, (),
+              ("components_fused",)),
+             ("checkpoint", phase_checkpoint, (), ("stencil_fused",)))
     f_ref = None
-    for name, fn, args, needs in paths:
+    for name, fn, args, needs, *avoids in paths:
         reset_counts()
         t_path = time.monotonic()
         out = fn(*(args if args is not None else (f_ref,)))
@@ -3890,6 +4438,8 @@ def main():
               f"({time.monotonic() - t_path:.1f} s)", flush=True)
         check(all(counts[k] > 0 for k in needs),
               f"{name}: a kernel of the path was not launched: {counts}")
+        check(not any(counts[k] for a in avoids for k in a),
+              f"{name}: launched a kernel its inputs are beyond: {counts}")
         for k, v in counts.items():
             launches[k] += v
     check(all(v > 0 for v in launches.values()),

@@ -5,8 +5,9 @@
 stably by their smaller endpoint and padded to a multiple of the tile with
 weight-0 copies of the last edge (:func:`.ops.banded.build_banded_plan`),
 which the solvers treat as absent.  On a CUDA device its endpoint gathers
-and edge -> vertex sums go through the kernels of :mod:`.ops.banded`, one
-PFDR edge + vertex stage through :mod:`.ops.banded_fused`, and an
+and edge -> vertex sums of float [V] / [V, K] fields go through the kernels
+of :mod:`.ops.banded` (other dtypes and ranks take the plain index gather),
+one PFDR edge + vertex stage through :mod:`.ops.banded_fused`, and an
 unmonitored quadratic PFDR solve through :mod:`.ops.solve_fused`.  It keeps
 no ``V x max degree`` table, so a hub vertex costs memory in proportion to
 its degree only: cut-pursuit hands it its hub-heavy reduced graphs
@@ -86,13 +87,21 @@ class BandedGraphD1(GraphD1):
 
     # -- edge <-> vertex transfer ------------------------------------------
 
+    def _kernel_takes(self, a) -> bool:
+        """Whether the transfer kernels take ``a``: float32 or float64 of 1
+        or 2 dimensions.  The bool sides of the PDHG cuts, the int labels
+        of the components and the ``[V, 2, T]`` sides of the duplex cut
+        take the plain index gather."""
+        return (self.mode != "jnp" and a.ndim in (1, 2)
+                and a.dtype in (torch.float32, torch.float64))
+
     def gather_endpoints(self, x):
-        if self.mode == "jnp":
+        if not self._kernel_takes(x):
             return banded_gather_plain(self, x)
         return banded_gather(self, x if x.is_contiguous() else x.contiguous())
 
     def edge_to_vertex_sum(self, vals_u, vals_v):
-        if self.mode == "jnp":
+        if not self._kernel_takes(vals_u):
             return banded_scatter_plain(self, vals_u, vals_v)
         if not (vals_u.is_contiguous() and vals_v.is_contiguous()):
             vals_u, vals_v = vals_u.contiguous(), vals_v.contiguous()

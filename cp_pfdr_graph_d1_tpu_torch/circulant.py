@@ -30,7 +30,8 @@ from .banded_graph import BandedGraphD1
 from .config import numpy_dtype
 from .graph import GraphD1
 from .ops.circulant_fused import fused_circulant_iteration
-from .ops.circulant_fused_simplex import fused_circulant_simplex_iteration
+from .ops.circulant_fused_simplex import (MAX_LABELS,
+                                          fused_circulant_simplex_iteration)
 
 
 def strip_order(coords, nstrips: Optional[int] = None):
@@ -201,6 +202,11 @@ class CirculantGraphD1(GraphD1):
         return g
 
     # -- fused iterations -----------------------------------------------------
+
+    def supports_fused_simplex(self, k: int) -> bool:
+        """Whether ``circulant_fused_simplex`` takes ``k`` labels: at most
+        ``MAX_LABELS``."""
+        return k <= MAX_LABELS
 
     def fused_iteration(self, x, grad, pre, zu, zv, rho: float, vprox):
         """One fused edge + vertex PFDR step over the families and the

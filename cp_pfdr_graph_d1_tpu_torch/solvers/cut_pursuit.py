@@ -399,14 +399,13 @@ def cp_quadratic_d1(op: QuadOp, obs, graph: GraphD1, *,
         # problem admits it, else the per-iteration device loop
         from .cut_pursuit_chain import chain_admissible, \
             cp_quadratic_d1_chain
-        from .cut_pursuit_device import cp_quadratic_d1_device, \
-            device_cut_supported
-        device_cut_supported(graph, obs, duplex)
+        from .cut_pursuit_device import cp_quadratic_d1_device
         kw = dict(la_l1=la_l1, positivity=positivity, bounds=bounds, opt=opt,
                   state=state)
         if chain_admissible(op, graph, opt, duplex, monitor, obs):
             return cp_quadratic_d1_chain(op, obs, graph, **kw)
-        return cp_quadratic_d1_device(op, obs, graph, monitor=monitor, **kw)
+        return cp_quadratic_d1_device(op, obs, graph, duplex=duplex,
+                                      monitor=monitor, **kw)
     t0 = _time.monotonic()
     prof = StageProfiler()
     eu, ev, la_d1 = graph.host_coo()

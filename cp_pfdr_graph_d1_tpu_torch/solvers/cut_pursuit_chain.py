@@ -70,7 +70,8 @@ def chain_admissible(op: QuadOp, graph, opt: CPOptions, duplex: bool,
     cuts, monitored runs, reconditioning or progress lines, or an operator
     the reduced kernels do not take; ``chain="on"`` on any device;
     ``"auto"`` for float32 tensors on a CUDA device with a stencil
-    graph."""
+    graph whose min-cut and components kernels take it
+    (``supports_fused``; the JAX package's ``_stencil_fusable``)."""
     if opt.chain == "off" or duplex or monitor:
         return False
     if opt.pfdr.dif_rcd != 0 or opt.pfdr.verbose != 0 or opt.verbose != 0:
@@ -80,7 +81,7 @@ def chain_admissible(op: QuadOp, graph, opt: CPOptions, duplex: bool,
     if opt.chain == "on":
         return True
     return (obs.is_cuda and obs.dtype == torch.float32
-            and isinstance(graph, StencilGraphD1))
+            and isinstance(graph, StencilGraphD1) and graph.supports_fused)
 
 
 def _warm_partition(op: QuadOp, obs, graph: StencilGraphD1, la_l1,

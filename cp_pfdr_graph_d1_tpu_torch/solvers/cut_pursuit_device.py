@@ -7,12 +7,17 @@ CP iteration.  Here the whole iteration stays on the tensors' device:
 * steepest cut: the certified PDHG relaxation on the full graph with the
   active edges masked to zero weight (a zero-weight edge never constrains
   the cut), warm-started from the previous iteration's cut.  On a stencil
-  graph it is the kernel of :mod:`..ops.mincut_fused` (its plain version
-  for CPU tensors); on a COO graph the plain loop of
-  :mod:`..maxflow.device`, on the CPU only;
-* connected components: min-label propagation to its fixpoint
-  (:mod:`..ops.components_fused` on a stencil graph,
-  :mod:`..ops.components` otherwise), compacted to first-encounter order
+  graph whose kernels take it (``supports_fused``) it is the kernel of
+  :mod:`..ops.mincut_fused` (its plain version for CPU tensors); on any
+  other container, and any device, the plain loop of
+  :mod:`..maxflow.device`, as in the JAX package.  ``duplex=True`` replaces
+  the two directional cuts by one two-layer ternary cut
+  (``CP_PFDR_graph_quadratic_d1_l1_duplex.cpp:468-549``), a plain loop on
+  every container (the JAX package has no kernel for it);
+* connected components: the union-find kernel of
+  :mod:`..ops.components_fused` on a stencil graph whose kernels take it,
+  min-label propagation to its fixpoint (:mod:`..ops.components`)
+  otherwise, compacted to first-encounter order
   (the reference's DFS numbering, ``CP_PFDR_graph_quadratic_d1_l1.cpp:
   570-596``);
 * contraction: a stable two-key sort of the active edges' component pairs
@@ -53,7 +58,7 @@ import torch
 from .. import maxflow
 from ..config import CPOptions, Lipsch, numpy_dtype
 from ..graph import GraphD1
-from ..maxflow.device import _pdhg_min_cut
+from ..maxflow.device import _pdhg_min_cut, _pdhg_min_cut_duplex
 from ..operators import DenseOp, DiagOp, GramOp, QuadOp
 from ..ops.components import connected_components_device
 from ..ops.components_fused import (compact_labels_device,
@@ -76,34 +81,34 @@ CONTINUE_FACTOR = 4
 _INT_SENTINEL = 2**31 - 1
 
 
-def device_cut_supported(graph, obs, duplex: bool):
-    """Raises :class:`NotImplementedError` for a ``cut="device"`` problem
-    the port does not run."""
-    if duplex:
-        raise NotImplementedError(
-            "the duplex (two-layer ternary) device cut is not ported yet: "
-            "ROADMAP queue 1 item 6; pass cut='host' for the duplex cut")
-    if obs.is_cuda and not isinstance(graph, StencilGraphD1):
-        raise NotImplementedError(
-            "cut='device' on a CUDA device takes a StencilGraphD1: its "
-            "min-cut and components kernels are stencil kernels, and the "
-            "JAX package has no TPU kernel for a cut on a COO, banded or "
-            "circulant graph (its PDHG cut there is plain jnp), so there is "
-            "none to port; pass cut='host', or CPU tensors")
+def stencil_kernels(graph) -> bool:
+    """Whether the device cut and components take the stencil kernels
+    (``mincut_fused``, ``components_fused``): a :class:`StencilGraphD1`
+    they take (``supports_fused``).  Every other graph takes the plain
+    loops, on any device."""
+    return isinstance(graph, StencilGraphD1) and graph.supports_fused
 
 
-def _direction_costs(op: QuadOp, obs, graph: GraphD1, x, active, la_l1, *,
-                     lo: float, hi: float, differentiable: bool,
-                     has_l1: bool, positivity: bool):
-    """Gradient of the smooth part + d1/l1 subgradient terms, then the one
-    or two cut cost vectors (``CP_PFDR_graph_quadratic_d1_l1.cpp:
-    339-549``)."""
+def _smooth_grad(op: QuadOp, obs, graph: GraphD1, x, active, la_l1,
+                 has_l1: bool):
+    """Gradient of the smooth part plus the d1 sign terms of the active
+    edges and the l1 sign terms (``CP_PFDR_graph_quadratic_d1_l1.cpp:
+    339-391``)."""
     dfs = op.grad(x, obs)
     xu, xv = graph.gather_endpoints(x)
     s = torch.sign(xu - xv) * graph.la_d1 * active
     dfs = dfs + graph.edge_to_vertex_sum(s, -s)
     if has_l1:
         dfs = dfs + torch.sign(x) * la_l1
+    return dfs
+
+
+def _direction_costs(op: QuadOp, obs, graph: GraphD1, x, active, la_l1, *,
+                     lo: float, hi: float, differentiable: bool,
+                     has_l1: bool, positivity: bool):
+    """The one or two cut cost vectors (``CP_PFDR_graph_quadratic_d1_l1
+    .cpp:339-549``)."""
+    dfs = _smooth_grad(op, obs, graph, x, active, la_l1, has_l1)
     if differentiable:
         return dfs, dfs
     zero = x == 0
@@ -120,6 +125,26 @@ def _direction_costs(op: QuadOp, obs, graph: GraphD1, x, active, la_l1, *,
     return c1, c2
 
 
+def _duplex_costs(op: QuadOp, obs, graph: GraphD1, x, active, la_l1, *,
+                  has_l1: bool, positivity: bool):
+    """Layer costs and inter-layer capacities of the duplex ternary cut
+    (``CP_PFDR_graph_quadratic_d1_l1_duplex.cpp:470-511``): the directional
+    derivatives ``up``/``do`` (``+-la_l1`` at zeros, ``-inf`` down under
+    positivity), ``m = max(0, -up, do)``; returns ``(-do + m, -(up + m),
+    m)``."""
+    dfs = _smooth_grad(op, obs, graph, x, active, la_l1, has_l1)
+    zero = x == 0
+    if has_l1:
+        up = dfs + torch.where(zero, la_l1, 0.0)
+        do = dfs - torch.where(zero, la_l1, 0.0)
+    else:
+        up = do = dfs
+    if positivity:
+        do = torch.where(zero, float("-inf"), do)
+    m = torch.clamp(torch.maximum(-up, do), min=0.0)
+    return -do + m, -(up + m), m
+
+
 def _device_cut(graph: GraphD1, active, c, tol: float, it_max: int,
                 check_every: int, x0=None, z0=None):
     """One steepest cut on the standing graph (active edges weight-masked
@@ -128,7 +153,7 @@ def _device_cut(graph: GraphD1, active, c, tol: float, it_max: int,
     ``gap <= tol * big``) and the relaxed state that warm-starts the next
     iteration's cut (the reference reuses its max-flow graph the same way,
     ``graph.hpp:280``)."""
-    if isinstance(graph, StencilGraphD1):
+    if stencil_kernels(graph):
         return device_cut_stencil_fused(graph, active, c, tol, it_max,
                                         check_every, x0, z0)
     w = torch.where(active, 0.0, graph.la_d1)
@@ -141,11 +166,38 @@ def _device_cut(graph: GraphD1, active, c, tol: float, it_max: int,
     return (su != sv) & ~active & (graph.la_d1 > 0), gap, big, x, z
 
 
+def _device_cut_duplex(graph: GraphD1, active, c1, c2, m, tol: float,
+                       it_max: int, check_every: int, x0=None, z0=None,
+                       zv0=None):
+    """One duplex ternary cut on the standing graph (active edges
+    weight-masked out, :func:`..maxflow.device._pdhg_min_cut_duplex`);
+    returns ``(sep [E] bool, gap, big, x, z, zv)``: the edges separated on
+    either layer, the gap and cost scale (0-d tensors) and the relaxed
+    state that warm-starts the next iteration's cut."""
+    w = torch.where(active, 0.0, graph.la_d1)
+
+    def finsum(a):
+        return torch.where(torch.isfinite(a), a.abs(), 0.0).sum()
+
+    big = 1.0 + 2.0 * (2.0 * w.sum() + finsum(c1) + finsum(c2) + m.sum())
+
+    def clip(c):
+        return torch.clamp(torch.where(torch.isfinite(c), c, big), -big,
+                           big).to(w.dtype)
+
+    side, gap, _, x, z, zv = _pdhg_min_cut_duplex(
+        graph, w, clip(c1), clip(c2), m.to(w.dtype), (tol * big).to(w.dtype),
+        it_max, check_every, x0, z0, zv0)
+    su, sv = graph.gather_endpoints(side)                  # [E, 2]
+    sep = (su != sv).any(dim=1) & ~active & (graph.la_d1 > 0)
+    return sep, gap, big, x, z, zv
+
+
 def _device_components(graph: GraphD1, active):
     """Labels of the components of the inactive nonzero-weight edges,
     compacted to first-encounter order: ``(cv int32, num_comp, firsts)``
     with ``num_comp`` a 0-d tensor."""
-    if isinstance(graph, StencilGraphD1):
+    if stencil_kernels(graph):
         return device_components_stencil_fused(graph, active)
     mask = ~active & (graph.la_d1 > 0)
     return compact_labels_device(connected_components_device(graph, mask))
@@ -345,12 +397,24 @@ def scalar_init(op: QuadOp, obs, num_v: int, la_l1_dev, has_l1: bool,
     return 0.0
 
 
+def _inactive_edges(graph: GraphD1, active):
+    """Host COO of the inactive nonzero-weight edges: ``(inact mask, eu,
+    ev, la)``."""
+    eu, ev, la = graph.host_coo()
+    inact = ~active.cpu().numpy() & (la > 0)
+    return inact, eu[inact], ev[inact], la[inact]
+
+
+def _separation(graph: GraphD1, inact, sep_i, device):
+    """[E] bool tensor of the inactive edges ``sep_i`` separates."""
+    sep = np.zeros(graph.num_edges, bool)
+    sep[np.nonzero(inact)[0][sep_i]] = True
+    return torch.as_tensor(sep, device=device)
+
+
 def _host_cut_fallback(graph: GraphD1, active, c1, c2):
     """Host push-relabel cuts for one CP iteration (certificate failure)."""
-    eu, ev, la = graph.host_coo()
-    act = active.cpu().numpy()
-    inact = ~act & (la > 0)
-    ieu, iev, ila = eu[inact], ev[inact], la[inact]
+    inact, ieu, iev, ila = _inactive_edges(graph, active)
 
     def cut(c):
         side = maxflow.min_cut(graph.num_vertices, ieu, iev, ila,
@@ -360,14 +424,41 @@ def _host_cut_fallback(graph: GraphD1, active, c1, c2):
     sep_i = cut(c1)
     if c2 is not None:
         sep_i = sep_i | cut(c2)
-    sep = np.zeros(graph.num_edges, bool)
-    sep[np.nonzero(inact)[0][sep_i]] = True
-    return torch.as_tensor(sep, device=active.device)
+    return _separation(graph, inact, sep_i, active.device)
+
+
+def _host_duplex_fallback(graph: GraphD1, active, c1, c2, m):
+    """Host directed min-cut for one duplex cut (certificate failure): the
+    2V-node two-layer construction of :func:`.cut_pursuit._duplex_cut`."""
+    inact, ieu, iev, ila = _inactive_edges(graph, active)
+    num_v = graph.num_vertices
+    c1h, c2h, mh = (a.cpu().numpy().astype(np.float64) for a in (c1, c2, m))
+    rng_v = np.arange(num_v, dtype=np.int32)
+    eeu = np.concatenate([ieu, ieu + num_v, rng_v])
+    eev = np.concatenate([iev, iev + num_v, rng_v + num_v])
+    w_uv = np.concatenate([ila, ila, np.zeros(num_v)])
+    w_vu = np.concatenate([ila, ila, mh])
+    side = maxflow.min_cut_directed(2 * num_v, eeu, eev, w_uv, w_vu,
+                                    np.concatenate([c1h, c2h]))
+    sep_i = ((side[ieu] != side[iev])
+             | (side[ieu + num_v] != side[iev + num_v]))
+    return _separation(graph, inact, sep_i, active.device)
+
+
+def _read_cuts(sep, checks, cut_tol: float):
+    """One host read of a round of cuts: ``(new separated edges,
+    certified)`` from ``sep`` and the cuts' ``[gap, big, ...]`` pairs."""
+    *gaps, n_new = torch.stack(
+        [v.to(torch.float64) for v in checks]
+        + [sep.sum().to(torch.float64)]).tolist()
+    return int(n_new), all(gap <= cut_tol * big
+                           for gap, big in zip(gaps[::2], gaps[1::2]))
 
 
 def cp_quadratic_d1_device(op: QuadOp, obs, graph: GraphD1, *,
                            la_l1=None, positivity: bool = False,
-                           bounds=None, opt: CPOptions = CPOptions(),
+                           bounds=None, duplex: bool = False,
+                           opt: CPOptions = CPOptions(),
                            monitor: bool = False,
                            state: CPState | None = None) -> CPResult:
     """Device-resident cut-pursuit solve (same contract as
@@ -410,46 +501,62 @@ def cp_quadratic_d1_device(op: QuadOp, obs, graph: GraphD1, *,
     it = 0
     dif = max(dif_tol2, 1.0)
     num_comp = 1
-    cut1 = cut2 = (None, None)     # PDHG warm starts per direction
+    # one duplex cut where the problem has two directions and no bounds
+    use_duplex = duplex and not differentiable and bounds is None
+    # PDHG warm starts: per direction, or the duplex cut's (x, z, zv)
+    cut1 = cut2 = (None, None)
+    dup = (None, None, None)
     chk = min(250, opt.cut_it_max)
     while it < opt.it_max and dif >= dif_tol2:
-        # -- steepest cut(s) (:337-549) --------------------------------------
-        c1, c2 = _direction_costs(op, obs, graph, x_full, active, la_l1_dev,
-                                  lo=lo, hi=hi,
-                                  differentiable=differentiable,
-                                  has_l1=has_l1, positivity=positivity)
-        def cuts(it_max):
-            nonlocal cut1, cut2
-            sep, gap1, big1, *cut1 = _device_cut(
-                graph, active, c1, opt.cut_tol, it_max, chk, *cut1)
-            checks = [gap1, big1]
-            if not differentiable:
-                sep2, gap2, big2, *cut2 = _device_cut(
-                    graph, active, c2, opt.cut_tol, it_max, chk, *cut2)
-                checks += [gap2, big2]
-                sep = sep | sep2
-            *gaps, n_new = torch.stack(
-                [v.to(torch.float64) for v in checks]
-                + [sep.sum().to(torch.float64)]).tolist()
-            return sep, int(n_new), all(
-                gap <= opt.cut_tol * big
-                for gap, big in zip(gaps[::2], gaps[1::2]))
+        # -- steepest cut(s) (:337-549; duplex :470-545) ---------------------
+        if use_duplex:
+            d_costs = _duplex_costs(op, obs, graph, x_full, active,
+                                    la_l1_dev, has_l1=has_l1,
+                                    positivity=positivity)
 
-        sep, n_new, certified = cuts(opt.cut_it_max)
+            def cuts(it_max):
+                nonlocal dup
+                sep, gap, big, *dup = _device_cut_duplex(
+                    graph, active, *d_costs, opt.cut_tol, it_max, chk, *dup)
+                return sep, [gap, big]
+        else:
+            c1, c2 = _direction_costs(op, obs, graph, x_full, active,
+                                      la_l1_dev, lo=lo, hi=hi,
+                                      differentiable=differentiable,
+                                      has_l1=has_l1, positivity=positivity)
+
+            def cuts(it_max):
+                nonlocal cut1, cut2
+                sep, gap1, big1, *cut1 = _device_cut(
+                    graph, active, c1, opt.cut_tol, it_max, chk, *cut1)
+                checks = [gap1, big1]
+                if not differentiable:
+                    sep2, gap2, big2, *cut2 = _device_cut(
+                        graph, active, c2, opt.cut_tol, it_max, chk, *cut2)
+                    checks += [gap2, big2]
+                    sep = sep | sep2
+                return sep, checks
+
+        sep, checks = cuts(opt.cut_it_max)
+        n_new, certified = _read_cuts(sep, checks, opt.cut_tol)
         if not certified:
             # continue the cuts from their own iterates
-            sep, n_new, certified = cuts(CONTINUE_FACTOR * opt.cut_it_max)
+            sep, checks = cuts(CONTINUE_FACTOR * opt.cut_it_max)
+            n_new, certified = _read_cuts(sep, checks, opt.cut_tol)
         if not certified:
+            kind = "duplex cut" if use_duplex else "cut"
             if obs.is_cuda:
                 raise RuntimeError(
-                    f"steepest cut uncertified after "
+                    f"steepest {kind} uncertified after "
                     f"{(1 + CONTINUE_FACTOR) * opt.cut_it_max} PDHG steps; "
                     f"raise CPOptions.cut_it_max or cut_tol")
             # exactness guard: redo this iteration's cuts on the host
-            warnings.warn("falling back to the host min-cut solver for this "
-                          "cut", UserWarning, stacklevel=2)
-            sep = _host_cut_fallback(graph, active, c1,
-                                     None if differentiable else c2)
+            warnings.warn(f"falling back to the host min-cut solver for this "
+                          f"{kind}", UserWarning, stacklevel=2)
+            sep = (_host_duplex_fallback(graph, active, *d_costs)
+                   if use_duplex else
+                   _host_cut_fallback(graph, active, c1,
+                                      None if differentiable else c2))
             n_new = int(sep.sum())
         active = active | sep
         if n_new == 0:  # nothing to recompute (:556-563)

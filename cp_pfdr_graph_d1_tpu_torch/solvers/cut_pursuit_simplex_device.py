@@ -10,13 +10,13 @@ loop ``CP_PFDR_graph_loss_d1_simplex.cpp:186-926``:
   (``:327-377``);
 * the K-1 alpha-expansion binary cuts (``:522-606``) as certified PDHG
   min-cuts, warm-started per label from the previous CP iteration's cut: on
-  a stencil graph through the kernel of :mod:`..ops.mincut_fused` (its
-  plain version for CPU tensors), on a COO graph through the plain loop of
-  :mod:`..maxflow.device`, on the CPU only (the JAX package runs that cut
-  as plain jnp: there is no TPU kernel to port).  The Kolmogorov-Zabih
-  pairwise decomposition is
-  re-expressed as symmetric weights plus unary credits, as in the host
-  loop.  The certificates stack on the device and are read once per CP
+  a stencil graph whose kernels take it (``supports_fused``) through the
+  kernel of :mod:`..ops.mincut_fused` (its plain version for CPU tensors),
+  on any other container and device through the plain loop of
+  :mod:`..maxflow.device` (the JAX package runs that cut as plain jnp:
+  there is no TPU kernel to port).  The Kolmogorov-Zabih pairwise
+  decomposition is re-expressed as symmetric weights plus unary credits,
+  as in the host loop.  The certificates stack on the device and are read once per CP
   iteration.  A cut that misses its certificate within ``cut_it_max``
   steps continues from its own iterates on the device for up to
   ``CONTINUE_FACTOR`` times as many more, and the cuts after it (they
@@ -25,7 +25,7 @@ loop ``CP_PFDR_graph_loss_d1_simplex.cpp:186-926``:
   expansion sequence on the host push-relabel, as the JAX package does;
 * components, contraction: the device stages of the quadratic loop
   (:mod:`.cut_pursuit_device`), the components through
-  :mod:`..ops.components_fused` on a stencil graph;
+  :mod:`..ops.components_fused` on a stencil graph it takes;
 * reduced observations (component sums and sizes, ``:733-766``) as
   deterministic segment sums over the vertices sorted by component;
 * the reduced solve: the staged loop of :mod:`.pfdr_simplex` on the
@@ -45,12 +45,11 @@ from ..config import CPOptions, numpy_dtype
 from ..graph import GraphD1
 from ..maxflow.device import _pdhg_min_cut
 from ..ops.mincut_fused import cut_problem, fused_pdhg_min_cut
-from ..stencil import StencilGraphD1
 from .cut_pursuit_common import (bucket, machine_eps,
                                  make_reduced_container)
 from .cut_pursuit_device import (CONTINUE_FACTOR, _contract_pad,
                                  _contract_sort, _device_components,
-                                 _run_sums, device_cut_supported)
+                                 _run_sums, stencil_kernels)
 from .cut_pursuit_simplex import (CPSimplexResult, CPSimplexState,
                                   _alpha_expansion_cuts, _loss_grad_np)
 from .pfdr_simplex import d1_objective, loss_objective, pfdr_loss_d1_simplex
@@ -98,9 +97,9 @@ def _device_side(graph: GraphD1, w, c, tol: float, it_max: int,
     """One certified PDHG min-cut; returns ``(side [V] bool, gap, big, x,
     z, steps)``, the last three the warm start of the same label's cut in
     the next CP iteration and the steps taken (0-d tensors).  On a stencil
-    graph, ``record`` (a list) receives ``("cut", *key, args)`` with the
-    arguments of the kernel call."""
-    if isinstance(graph, StencilGraphD1):
+    graph the kernel takes, ``record`` (a list) receives ``("cut", *key,
+    args)`` with the arguments of the kernel call."""
+    if stencil_kernels(graph):
         args, big = cut_problem(graph, w, c, tol, x0, z0)
         if record is not None:
             record.append(("cut", *key, args))
@@ -255,7 +254,6 @@ def cp_loss_d1_simplex_device(graph: GraphD1, q, *, al: float,
     ``it`` (0-based) with the arguments of its ``fused_pdhg_min_cut``
     call, and ``("components", it, active)`` with the active-edge mask of
     its components call."""
-    device_cut_supported(graph, q, False)
     t0 = _time.monotonic()
     num_v, k = q.shape
     device = q.device

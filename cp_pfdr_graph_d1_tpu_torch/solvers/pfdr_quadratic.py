@@ -203,21 +203,24 @@ def fused_route(opt: PFDROptions, graph, obs) -> bool:
     """Whether the iteration goes through a fused stage kernel's wrapper
     (stencil, circulant and banded containers, and the row blocks of a
     vertex-sharded stencil through the halo kernels): "auto" when the
-    tensors lie on a CUDA device, "on" always.  A stencil the kernel cannot
-    take raises rather than running the staged loop in its place."""
-    if (opt.fused == "off" or not hasattr(graph, "fused_iteration")
-            or not (getattr(graph, "supports_fused", True)
-                    or getattr(graph, "supports_halo_fused", False))):
+    tensors lie on a CUDA device and the container's kernel takes it
+    (``supports_fused``; a stencil of more than ``MAX_FAMILIES`` shift
+    families runs the staged loop, as in the JAX package), "on" always.
+    "on" with a stencil the kernel cannot take raises."""
+    if opt.fused == "off" or not hasattr(graph, "fused_iteration"):
         return False
     if not (opt.fused == "on" or obs.is_cuda):
         return False
-    f = len(graph.shifts) if hasattr(graph, "shifts") else 0
+    f = len(getattr(graph, "shifts", ()))
     if f > MAX_FAMILIES:
-        raise ValueError(
-            f"stencil of {f} shift families; the stencil_fused kernel takes "
-            f"at most {MAX_FAMILIES} (pass PFDROptions(fused='off') for the "
-            f"staged loop)")
-    return True
+        if opt.fused == "on":
+            raise ValueError(
+                f"stencil of {f} shift families; the stencil_fused kernel "
+                f"takes at most {MAX_FAMILIES} (pass PFDROptions(fused="
+                f"'off' or 'auto') for the staged loop)")
+        return False
+    return bool(getattr(graph, "supports_fused", True)
+                or getattr(graph, "supports_halo_fused", False))
 
 
 def _whole_solve_kind(op: QuadOp, graph) -> str | None:

@@ -235,23 +235,26 @@ def _ml_labels(p):
 def fused_simplex_route(opt: PFDROptions, graph, q) -> bool:
     """Whether the solve runs the kernel loop: on a container with a fused
     multi-label stage (stencil or circulant), "auto" when the tensors lie
-    on a CUDA device, "on" always.  A container the kernel cannot take
-    raises rather than running the staged loop in its place."""
-    if (opt.fused == "off" or not hasattr(graph, "fused_simplex_iteration")
-            or not getattr(graph, "supports_fused", True)):
+    on a CUDA device and the container's kernel takes the label count
+    (``supports_fused_simplex``: at most ``MAX_LABELS`` labels, and on a
+    stencil at most ``MAX_FAMILIES`` families; any other runs the staged
+    loop, as in the JAX package), "on" always.  "on" with a label or
+    family count the kernels cannot take raises."""
+    if (opt.fused == "off"
+            or not hasattr(graph, "fused_simplex_iteration")):
         return False
     if not (opt.fused == "on" or q.is_cuda):
         return False
     k = q.shape[-1]
-    f = len(graph.shifts) if hasattr(graph, "shifts") else 0
-    if f > MAX_FAMILIES or k > MAX_LABELS:
+    f = len(getattr(graph, "shifts", ()))
+    if opt.fused == "on" and (f > MAX_FAMILIES or k > MAX_LABELS):
         raise ValueError(
             f"{type(graph).__name__} with {k} labels"
             + (f" and {f} shift families" if f else "")
             + f"; the fused multi-label kernels take at most {MAX_LABELS} "
             f"labels (stencils at most {MAX_FAMILIES} families); pass "
-            f"PFDROptions(fused='off') for the staged loop")
-    return True
+            f"PFDROptions(fused='off' or 'auto') for the staged loop")
+    return graph.supports_fused_simplex(k)
 
 
 def _simplex_fused_loop(graph, q, p0, la_f, pre: SimplexPrecond, *,

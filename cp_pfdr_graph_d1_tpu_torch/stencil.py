@@ -18,7 +18,8 @@ import torch
 
 from .config import numpy_dtype
 from .graph import GraphD1
-from .ops.stencil_fused import fused_stage, stencil_iteration_plain
+from .ops.stencil_fused import (MAX_FAMILIES, fused_stage,
+                                stencil_iteration_plain)
 from .ops import stencil_fused_simplex
 
 
@@ -140,6 +141,19 @@ class StencilGraphD1(GraphD1):
         return out.reshape((self.num_vertices,) + rest)
 
     # -- fused iteration ------------------------------------------------------
+
+    @property
+    def supports_fused(self) -> bool:
+        """Whether the stencil kernels (``stencil_fused``, ``mincut_fused``,
+        ``components_fused``) take this graph: 1 to ``MAX_FAMILIES`` shift
+        families.  The solvers send any other stencil to their plain
+        routes (vertex-sharded halo blocks override this to False)."""
+        return 1 <= len(self.shifts) <= MAX_FAMILIES
+
+    def supports_fused_simplex(self, k: int) -> bool:
+        """Whether ``stencil_fused_simplex`` takes ``k`` labels on this
+        graph: :attr:`supports_fused` and at most ``MAX_LABELS`` labels."""
+        return self.supports_fused and k <= stencil_fused_simplex.MAX_LABELS
 
     def fused_iteration(self, x, grad, pre, zu, zv, rho: float, vprox):
         """One fused edge+vertex PFDR step on [V] vertex and [E] edge rows:

@@ -206,17 +206,35 @@ def test_build_sources_lie_in_the_port(monkeypatch):
 
 
 def test_unported_routes_raise():
-    # the device cut and the chained loop are ported; the duplex device cut
-    # is what stays open of queue 1 item 6.  The circulant container is
-    # ported (queue 1 item 9): the entry that raised for it now solves
+    """The routes that once raised for want of a port now solve: the duplex
+    device cut (its objective within 5e-7 relative of the JAX duplex
+    device loop's, float64) and the circulant container."""
     assert T.CPOptions(cut="device", chain="on").chain == "on"
-    with pytest.raises(NotImplementedError, match="queue 1 item 6"):
-        T.solvers.cut_pursuit.cp_quadratic_d1(
-            T.DenseOp(torch.ones((2, 3), dtype=torch.float64)),
-            torch.ones(2, dtype=torch.float64),
-            T.GraphD1.create([0], [1], [1.0], num_vertices=3,
-                             dtype=torch.float64, device="cpu"),
-            la_l1=0.1, duplex=True, opt=T.CPOptions(cut="device"))
+    eu, ev, la, a, y = grid_problem(3)
+    la_l1 = np.full(H * W, 0.02)
+    pf = dict(rho=1.5, dif_tol=1e-8, it_max=3000)
+    res_j = J.solvers.cut_pursuit.cp_quadratic_d1(
+        J.DenseOp(jnp.asarray(a)), jnp.asarray(y),
+        J.GraphD1.create(eu, ev, la, num_vertices=H * W, dtype=jnp.float64),
+        la_l1=la_l1, duplex=True,
+        opt=J.CPOptions(dif_tol=1e-5, it_max=8, cut="device",
+                        pfdr=J.PFDROptions(**pf)))
+    res_t = T.solvers.cut_pursuit.cp_quadratic_d1(
+        T.DenseOp(torch.from_numpy(a)), torch.from_numpy(y),
+        T.GraphD1.create(eu, ev, la, num_vertices=H * W,
+                         dtype=torch.float64, device="cpu"),
+        la_l1=la_l1, duplex=True,
+        opt=T.CPOptions(dif_tol=1e-5, it_max=8, cut="device",
+                        pfdr=T.PFDROptions(**pf)))
+
+    def obj(res):
+        x = np.asarray(res.rx)[np.asarray(res.cv)]
+        return (0.5 * np.sum((a @ x - y) ** 2)
+                + np.sum(la * np.abs(x[eu] - x[ev]))
+                + np.sum(la_l1 * np.abs(x)))
+
+    assert res_t.it == res_j.it
+    assert abs(obj(res_t) - obj(res_j)) <= 5e-7 * abs(obj(res_j))
     out = tapi.pfdr_quadratic_d1_l1(np.ones(2), np.ones((2, 3)), [0], [1],
                                     [1.0], container="circulant",
                                     device="cpu")

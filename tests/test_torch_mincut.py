@@ -7,6 +7,9 @@ package's ``_pdhg_min_cut`` and its Pallas kernel in interpret mode, on
 iterates at 1e-10 (the two differ only in summation order).  The
 certified-with-fallback entry is held against the host push-relabel by
 cut value, since a non-unique min-cut may put vertices on either side.
+The directed and duplex cuts are held to the JAX functions the same way,
+and the counterparts of ``tests/test_mincut.py:261-383`` hold the directed
+cut and the duplex device loop to the host solvers.
 """
 import warnings
 
@@ -19,9 +22,13 @@ from cp_pfdr_graph_d1_tpu.graph import GraphD1 as JGraph
 from cp_pfdr_graph_d1_tpu.maxflow import device as jdev
 from cp_pfdr_graph_d1_tpu.ops import mincut_fused as jmf
 from cp_pfdr_graph_d1_tpu.stencil import StencilGraphD1 as JStencil
+import cp_pfdr_graph_d1_tpu_torch as T
 from cp_pfdr_graph_d1_tpu_torch import GraphD1, StencilGraphD1, maxflow
 from cp_pfdr_graph_d1_tpu_torch.maxflow import device as tdev
 from cp_pfdr_graph_d1_tpu_torch.ops import mincut_fused as tmf
+from cp_pfdr_graph_d1_tpu_torch.solvers.cut_pursuit import cp_quadratic_d1
+
+from .conftest import make_grid_graph
 
 torch.set_num_threads(1)
 
@@ -148,3 +155,167 @@ def test_min_cut_device_stencil_and_coo_agree_with_jax():
     big = 1.0 + 2.0 * (la.sum() + np.abs(c).sum())
     for side in (ss, sc):
         assert abs(tdev.cut_value(eu, ev, la, c, side) - want) <= 2e-8 * big
+
+
+def directed_value(eu, ev, w_uv, w_vu, c, side):
+    """Objective of a cut with per-direction arc capacities."""
+    side = np.asarray(side).astype(bool)
+    return (float(np.sum(c[side])) + float(np.sum(w_uv[side[eu] & ~side[ev]]))
+            + float(np.sum(w_vu[side[ev] & ~side[eu]])))
+
+
+def directed_inputs(seed, n, e):
+    r = np.random.default_rng(seed)
+    eu = r.integers(0, n, e).astype(np.int32)
+    ev = ((eu + 1 + r.integers(0, n - 1, e)) % n).astype(np.int32)
+    return (eu, ev, r.uniform(0.0, 1.0, e), r.uniform(0.0, 1.0, e),
+            r.normal(size=n))
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_directed_device_cut_matches_host(seed):
+    """``tests/test_mincut.py::test_directed_device_cut_matches_host``: the
+    asymmetric-dual PDHG cut reaches the directed push-relabel's cut
+    value."""
+    n = 24
+    eu, ev, w_uv, w_vu, c = directed_inputs(seed + 40, n, 70)
+    side_d = tdev.min_cut_directed_device(n, eu, ev, w_uv, w_vu, c,
+                                          dtype=torch.float64, device="cpu")
+    side_h = maxflow.min_cut_directed(n, eu, ev, w_uv, w_vu, c)
+    np.testing.assert_allclose(directed_value(eu, ev, w_uv, w_vu, c, side_d),
+                               directed_value(eu, ev, w_uv, w_vu, c, side_h),
+                               atol=1e-6)
+
+
+@pytest.mark.parametrize("seed", range(3))
+def test_directed_python_fallback_agrees(seed):
+    """``tests/test_mincut.py::test_directed_python_fallback_agrees``: the
+    directed Dinic fallback equals the native directed solver."""
+    n = 16
+    eu, ev, w_uv, w_vu, c = directed_inputs(seed + 50, n, 40)
+    side_py = maxflow._min_cut_python(n, eu, ev, w_uv, w_vu, c)
+    side_h = maxflow.min_cut_directed(n, eu, ev, w_uv, w_vu, c)
+    np.testing.assert_allclose(directed_value(eu, ev, w_uv, w_vu, c, side_py),
+                               directed_value(eu, ev, w_uv, w_vu, c, side_h),
+                               atol=1e-9)
+
+
+def duplex_problem(h, w, seed):
+    """``tests/test_mincut.py``'s duplex problems: a grid fused LASSO with
+    l1, float64."""
+    v = h * w
+    eu, ev, la = make_grid_graph(h, w, seed=seed)
+    r = np.random.default_rng(seed + 1)
+    a = r.normal(size=(30, v)) / np.sqrt(30)
+    x_true = np.zeros((h, w))
+    x_true[1:4, 1:4] = 1.5
+    x_true[h - 3:h - 1, w - 4:w - 1] = -2.0
+    y = a @ x_true.ravel() + 0.02 * r.normal(size=30)
+    g = GraphD1.create(eu, ev, 0.3 * la, dtype=torch.float64, device="cpu")
+    return a, y, np.full(v, 0.02), g
+
+
+def solve_duplex(a, y, la_l1, g, positivity, **opt):
+    res = cp_quadratic_d1(
+        T.DenseOp(torch.from_numpy(a)), torch.from_numpy(y), g, la_l1=la_l1,
+        positivity=positivity, duplex=True,
+        opt=T.CPOptions(dif_tol=1e-5, pfdr=T.PFDROptions(
+            rho=1.5, dif_tol=1e-9, it_max=5000), **opt))
+    return res.rx[res.cv]
+
+
+@pytest.mark.parametrize("positivity", [False, True])
+def test_duplex_device_loop_matches_host_duplex(positivity):
+    """``tests/test_mincut.py::test_duplex_device_loop_matches_host_duplex``:
+    ``cut="device", duplex=True`` reaches the host duplex solution."""
+    a, y, la_l1, g = duplex_problem(8, 8, 31)
+    base = solve_duplex(a, y, la_l1, g, positivity, it_max=10, cut="host")
+    res = solve_duplex(a, y, la_l1, g, positivity, it_max=10, cut="device")
+    np.testing.assert_allclose(res, base, atol=1e-6)
+
+
+def test_duplex_device_cut_fallback():
+    """``tests/test_mincut.py::test_duplex_device_cut_fallback``: a starved
+    duplex PDHG budget, still uncertified after its continuation, falls
+    back to the host directed cut on CPU tensors, with a warning."""
+    a, y, la_l1, g = duplex_problem(6, 6, 33)
+    base = solve_duplex(a, y, la_l1, g, False, it_max=8, cut="host")
+    with pytest.warns(UserWarning, match="falling back"):
+        res = solve_duplex(a, y, la_l1, g, False, it_max=8, cut="device",
+                           cut_it_max=1)
+    np.testing.assert_allclose(res, base, atol=1e-6)
+
+
+def parity_graphs(container, seed):
+    """A 12 x 16 stencil or a random COO graph in both packages, float64,
+    with 10 % of the edges at weight zero."""
+    r = np.random.default_rng(seed)
+    if container == "stencil":
+        gj = JStencil.create((H, W), {(0, 1): 0.3, (1, 0): 0.3},
+                             dtype=jnp.float64)
+        gt = StencilGraphD1.create((H, W), {(0, 1): 0.3, (1, 0): 0.3},
+                                   dtype=torch.float64, device="cpu")
+        w = np.asarray(gj.la_d1) * (r.random(gj.num_edges) > 0.1)
+    else:
+        eu, ev, w, v = coo_graph(seed)
+        w = w * (r.random(len(w)) > 0.1)
+        gj = JGraph.create(eu, ev, w, num_vertices=v, dtype=jnp.float64)
+        gt = GraphD1.create(eu, ev, w, num_vertices=v, dtype=torch.float64,
+                            device="cpu")
+    return r, gj, gt, w
+
+
+@pytest.mark.parametrize("container", ["stencil", "coo"])
+def test_pdhg_min_cut_directed_matches_jax(container):
+    """``_pdhg_min_cut_directed`` against the JAX function: equal step
+    counts and sides, gaps at 1e-10 (the JAX function returns no
+    iterates)."""
+    r, gj, gt, w = parity_graphs(container, 11)
+    w_uv = w * r.uniform(0.2, 1.0, len(w))
+    w_vu = w * r.uniform(0.2, 1.0, len(w))
+    c = r.standard_normal(gj.num_vertices)
+    tol = 1e-6 * (1.0 + 2.0 * (w_uv.sum() + w_vu.sum() + np.abs(c).sum()))
+    sj, gapj, itj = jdev._pdhg_min_cut_directed(
+        gj, jnp.asarray(w_uv), jnp.asarray(w_vu), jnp.asarray(c),
+        jnp.asarray(tol), 20_000, 50)
+    st, gapt, itt = tdev._pdhg_min_cut_directed(
+        gt, torch.from_numpy(w_uv), torch.from_numpy(w_vu),
+        torch.from_numpy(c), torch.tensor(tol, dtype=torch.float64), 20_000,
+        50)
+    assert itt == int(itj) and itt < 20_000
+    np.testing.assert_array_equal(st.numpy(), np.asarray(sj))
+    np.testing.assert_allclose(float(gapt), float(gapj), rtol=0, atol=1e-10)
+    assert float(gapt) <= tol
+
+
+@pytest.mark.parametrize("container,warm", [("stencil", False),
+                                            ("coo", False), ("coo", True)])
+def test_pdhg_min_cut_duplex_matches_jax(container, warm):
+    """``_pdhg_min_cut_duplex`` against the JAX function, cold and from a
+    warm start: equal step counts and sides, x, z and zv at 1e-10."""
+    r, gj, gt, w = parity_graphs(container, 13)
+    v, e = gj.num_vertices, gj.num_edges
+    c1, c2 = r.standard_normal(v), r.standard_normal(v)
+    m = np.maximum(0.0, r.standard_normal(v))
+    tol = 1e-6 * (1.0 + 2.0 * (2 * w.sum() + np.abs(c1).sum()
+                               + np.abs(c2).sum() + m.sum()))
+    start = ((r.random((v, 2)), r.uniform(-1, 1, (e, 2)), r.random(v))
+             if warm else (None, None, None))
+
+    def args(conv):
+        return [None if a is None else conv(a) for a in start]
+
+    out_j = jdev._pdhg_min_cut_duplex(
+        gj, jnp.asarray(w), jnp.asarray(c1), jnp.asarray(c2), jnp.asarray(m),
+        jnp.asarray(tol), 20_000, 50, *args(jnp.asarray))
+    out_t = tdev._pdhg_min_cut_duplex(
+        gt, torch.from_numpy(w), torch.from_numpy(c1), torch.from_numpy(c2),
+        torch.from_numpy(m), torch.tensor(tol, dtype=torch.float64), 20_000,
+        50, *args(torch.from_numpy))
+    (sj, gapj, itj, *state_j), (st, gapt, itt, *state_t) = out_j, out_t
+    assert itt == int(itj) and itt < 20_000
+    np.testing.assert_array_equal(st.numpy(), np.asarray(sj))
+    for a, b in zip(state_t, state_j):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=0,
+                                   atol=1e-10)
+    assert float(gapt) <= tol

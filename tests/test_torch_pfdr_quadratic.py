@@ -217,9 +217,10 @@ def test_prox_operators_and_power_iteration_match_jax():
 
 @pytest.mark.parametrize("fused", ["on", "auto"])
 def test_stencil_beyond_kernel_families(fused):
-    """A stencil of more shift families than the kernel takes raises on the
-    kernel route instead of running the staged loop in its place; on CPU
-    tensors "auto" takes the staged loop."""
+    """A stencil of more shift families than the kernel takes raises with
+    ``fused="on"``; "auto" takes the staged loop (on CPU tensors always,
+    on the card because the kernel does not take the stencil: see
+    ``tests/test_torch_route_fallback.py``)."""
     h, w = 4, 5
     shifts = [(dy, dx) for dy in range(1, 4) for dx in range(-3, 3)][:17]
     assert len(shifts) == 17
