@@ -125,6 +125,19 @@ It imports nothing of JAX.  Phases, one or more lines each:
    (``utils.save_state`` / ``load_state`` of a float64 PFDR state resumed
    on the card bit for bit, of a cut-pursuit state, and ``utils.profile``
    leaving a trace).
+15. slice 12: in the P = 2 ranks of ``pfdr-halo``, ``cp-dist-device``
+   (``parallel.cp_quadratic_d1_dist`` with ``cut="device"`` on the EEG
+   problem's 140 x 140 stencil in float32, the operator's rows sharded over
+   the ranks: the chained loop with ``chain_options()``, then
+   ``chain="off"``; the same partition and values on both ranks, the
+   objective within 1e-3 relative of the float64 host cut, one card's
+   ``cp_quadratic_d1`` of each timed beside it before the counted window)
+   and ``example-distributed`` (``examples/torch_example_distributed.py``'s
+   four paths in the same two ranks, held to the example's assertions);
+   then the main path ``examples``: ``examples/torch_example_EEG_CP.py``
+   and ``torch_example_labeling_CP.py`` on the card, held to the bars of
+   ``tests/test_examples.py``.  The card's name and power limit stand
+   beside these paths' times.
 
 ``python3 chip_smoke.py --compare`` runs only ``compare_timings`` (the
 ``stencil_fused_simplex`` and ``components_fused`` calls, the
@@ -164,6 +177,10 @@ LA_L1 = 2e-3
 # through up to a few hundred iterations of a nonexpansive iteration
 F64_TOL = 1e-10
 F32_TOL = 1e-4
+
+# the card's name and power limit (nvidia-smi), set by phase_env and
+# printed beside the times of the later paths
+CARD = None
 
 
 def check(cond, msg):
@@ -249,6 +266,8 @@ def phase_env():
                          text=True, timeout=60)
     check(smi.returncode == 0, f"nvidia-smi failed: {smi.stderr}")
     card = smi.stdout.strip().splitlines()[0]
+    global CARD
+    CARD = card
     print(f"[env] python {sys.version.split()[0]}, torch {torch.__version__}"
           f", CUDA {torch.version.cuda}, {torch.cuda.device_count()} device(s)"
           f", device 0: {torch.cuda.get_device_name(0)}")
@@ -3360,8 +3379,8 @@ def in_process_group(fn, *args, device="cuda"):
 HALO_PROFILE_ITERS = 20
 
 
-def phase_pfdr_halo(ref, p2_ref=None, side=HALO_SIDE, iters=HALO_ITERS,
-                    shards=HALO_SHARDS, device="cuda"):
+def phase_pfdr_halo(ref, p2_ref=None, f_ref=None, side=HALO_SIDE,
+                    iters=HALO_ITERS, shards=HALO_SHARDS, device="cuda"):
     """``parallel.pfdr_quadratic_d1_halo`` against the single-card solves
     ``ref`` (``halo_references``), ``iters`` iterations at dif_tol = 0,
     float32 and float64.  P = 1 runs in this process in an NCCL group of
@@ -3371,7 +3390,9 @@ def phase_pfdr_halo(ref, p2_ref=None, side=HALO_SIDE, iters=HALO_ITERS,
     or more, P = the card count (at most 4) runs once more with one NCCL
     rank per card.  Not a scaling measurement: ranks that share one card
     share its time.  With ``p2_ref`` (``p2_references``) the spawned ranks
-    then run the other distributed entries at P = 2 (``report_p2``).  This
+    then run the other distributed entries at P = 2 (``report_p2``;
+    ``f_ref``: the float64 EEG host cut's objective that ``cp-dist-device``
+    is held to).  This
     process launches only the P = 1 solves' kernels: its busy share is
     profiled after the counted run (``halo_busy_p1``).  Returns the max
     |dx| per ring size and dtype, and the P = 2 entries' objective
@@ -3442,7 +3463,8 @@ def phase_pfdr_halo(ref, p2_ref=None, side=HALO_SIDE, iters=HALO_ITERS,
                   flush=True)
     gaps = None
     if with_p2:
-        gaps = report_p2([o["p2"] for o in shared if "p2" in o], *p2_ref)
+        gaps = report_p2([o["p2"] for o in shared if "p2" in o], *p2_ref,
+                         f_ref)
     return worst, gaps
 
 
@@ -3459,6 +3481,11 @@ def halo_busy_p1(side=HALO_SIDE, device="cuda"):
 
 # the other ported distributed entries, once each at P = 2 on the card
 P2_SHARDS = 2
+# the kernels cp_quadratic_d1_dist with cut="device" launches in each rank
+# on the EEG stencil: the chained loop all four, the per-iteration device
+# loop all but stencil_fused (the chain's warm partition)
+DIST_DEVICE_KERNELS = ("stencil_fused", "mincut_fused", "components_fused",
+                       "solve_small")
 P2_SIMPLEX_ITERS = 200    # [pfdr-halo-simplex]: PFDR iterations at dif_tol 0
 P2_DP_ITERS = 300         # [pfdr-dp]
 P2_CP_IT = 4              # [cp-dist]: cut-pursuit iterations
@@ -3475,6 +3502,12 @@ def p2_cuts():
         "pfdr-halo-simplex": f"{P2_SIMPLEX_ITERS} iterations at dif_tol 0",
         "pfdr-dp": f"{P2_DP_ITERS} iterations at dif_tol 0",
         "cp-dist": f"it_max {P2_CP_IT} (bench.py: 15), float64",
+        "cp-dist-device": "none (the EEG problem on its 140 x 140 stencil, "
+                          "float32, chain_options: the chained loop)",
+        "cp-dist-device-off": "none (as cp-dist-device, chain='off': the "
+                              "per-iteration device loop)",
+        "example-distributed": "none (examples/torch_example_distributed"
+                               ".py's 32 x 32 problem)",
         "cp-sharded": f"a {P2_CROP} x {P2_CROP} crop of the 724 x 724 "
                       f"field (the window of the largest spread), it_max "
                       f"{P2_SHARDED_IT} (bench.py: 4)",
@@ -3541,6 +3574,9 @@ def p2_graphs(pb, device):
                           device=device),
         cp=GraphD1.create(pb["eu"], pb["ev"], LA_D1, dtype=torch.float64,
                           device=device),
+        cp_device=StencilGraphD1.create((V_SIDE, V_SIDE),
+                                        {(0, 1): LA_D1, (1, 0): LA_D1},
+                                        dtype=f32, device=device),
         sharded=StencilGraphD1.create((P2_CROP, P2_CROP),
                                       {(0, 1): 0.35, (1, 0): 0.35},
                                       dtype=f32, device=device),
@@ -3550,25 +3586,29 @@ def p2_graphs(pb, device):
 
 
 def p2_paths(mesh, device="cuda"):
-    """This rank's runs of the five entries (rank 0 returns the results);
-    each ``(seconds, result, kernel launches in this rank)``."""
+    """This rank's runs of the five entries (rank 0 returns the results),
+    then (slice 12) ``cp_quadratic_d1_dist`` with ``cut="device"`` on the
+    chained and the per-iteration device loop and the distributed
+    example's four paths (every rank returns these results); each
+    ``(seconds, result, kernel launches in this rank)``."""
     import torch
     from cp_pfdr_graph_d1_tpu_torch import DenseOp
     from cp_pfdr_graph_d1_tpu_torch import parallel as par
+    from examples import torch_example_distributed
     pb = p2_inputs()
     opts = p2_options()
     gs = p2_graphs(pb, device)
-    keep = mesh.rank == 0
     out = dict(backend=mesh.backend,
                staged=mesh.staged(torch.empty(1, device=device)))
 
-    def run(name, fn):
+    def run(name, fn, every_rank=False):
         reset_counts()
         sync(device)
         t0 = time.perf_counter()
         res = fn()
         sync(device)
         counts = {k: v for k, v in read_counts().items() if v}
+        keep = every_rank or mesh.rank == 0
         out[name] = (time.perf_counter() - t0, res if keep else None, counts)
 
     prob = par.shard_stencil_simplex_problem(pb["q"], gs["simplex"],
@@ -3606,6 +3646,24 @@ def p2_paths(mesh, device="cuda"):
         return res.cv, res.rp, res.it
 
     run("cp-sharded-simplex", sharded_simplex)
+
+    def cp_dist_device(chain):
+        res = par.cp_quadratic_d1_dist(
+            DenseOp(torch.as_tensor(pb["a"])), torch.as_tensor(pb["y"]),
+            gs["cp_device"], mesh, la_l1=np.full(pb["a"].shape[1], LA_L1,
+                                                  np.float32),
+            positivity=True, opt=dataclasses.replace(chain_options(),
+                                                     chain=chain),
+            device=device)
+        return res.cv, res.rx, res.it
+
+    # every rank keeps these: the ranks must hold the same partition
+    run("cp-dist-device", functools.partial(cp_dist_device, "auto"),
+        every_rank=True)
+    run("cp-dist-device-off", functools.partial(cp_dist_device, "off"),
+        every_rank=True)
+    run("example-distributed", functools.partial(
+        torch_example_distributed.paths, mesh, device), every_rank=True)
     return out
 
 
@@ -3701,10 +3759,23 @@ def p2_references(device="cuda"):
     # knife-edge expansion cut of the next iteration: the host loop with
     # the same float64 reduced solves is the second witness
     run("cp-sharded-simplex-f64", sharded_simplex_f64)
+
+    def cp_device(chain):
+        res = cp_quadratic_d1(
+            DenseOp(torch.as_tensor(pb["a"], device=device)),
+            torch.as_tensor(pb["y"], device=device), gs["cp_device"],
+            la_l1=np.full(pb["a"].shape[1], LA_L1, np.float32),
+            positivity=True, opt=dataclasses.replace(chain_options(),
+                                                     chain=chain))
+        return res.cv, res.rx, res.it
+
+    # one card's cut="device" solves beside the ranks' (one run each)
+    run("cp-dist-device", functools.partial(cp_device, "auto"))
+    run("cp-dist-device-off", functools.partial(cp_device, "off"))
     return ref, pb
 
 
-def report_p2(outs, ref, pb):
+def report_p2(outs, ref, pb, f_ref):
     """``pfdr_loss_d1_simplex_halo``, ``pfdr_quadratic_d1_sharded``,
     ``cp_quadratic_d1_dist``, ``cp_quadratic_d1_sharded`` and
     ``cp_loss_d1_simplex_sharded``, run once each at P = 2 (``p2_paths``,
@@ -3714,7 +3785,13 @@ def report_p2(outs, ref, pb):
     problem (al = 1), the EEG problem on its COO graph
     (``bench.py:65-82``) and ``bench.py:366-386``'s 724 x 724 denoising,
     cut as ``p2_cuts`` says.  Prints the objective gap, max |difference|
-    and the equality of the partitions; holds each to its tolerance."""
+    and the equality of the partitions; holds each to its tolerance.  Then
+    (slice 12) ``cp-dist-device``: the EEG problem through
+    ``cp_quadratic_d1_dist`` with ``cut="device"`` on the chained and the
+    per-iteration device loop, the same partition and values on every rank
+    and the objective within 1e-3 relative of the float64 host cut
+    ``f_ref`` (``bench.py:331-347``'s rule), beside one card's solve; and
+    the distributed example's four paths, held to its own bars."""
     r0 = outs[0]
     how = (f"P={P2_SHARDS} {r0['backend']}, "
            + ("strips and sums staged through pinned host memory"
@@ -3725,9 +3802,10 @@ def report_p2(outs, ref, pb):
     def line(name, msg):
         secs = max(o[name][0] for o in outs)
         counts = [o[name][2] for o in outs]
-        print(f"[{name}] {how}; cut: {cuts[name]}; {secs:.2f} s (single "
-              f"card {ref[name][0]:.2f} s); {msg}; kernel launches per rank "
-              f"{counts}", flush=True)
+        single = (f" (single card {ref[name][0]:.2f} s)" if name in ref
+                  else "")
+        print(f"[{name}] {how}; cut: {cuts[name]}; {secs:.2f} s{single}; "
+              f"{msg}; kernel launches per rank {counts}", flush=True)
 
     # multi-label halo PFDR against stencil_fused_simplex on one card
     p_h, p_1 = r0["pfdr-halo-simplex"][1], ref["pfdr-halo-simplex"][1]
@@ -3815,6 +3893,44 @@ def report_p2(outs, ref, pb):
                       for k in ("solve_small", "solve_fused")) > 0
                   for o in outs), "cp-dist: a rank solved its reduced "
               "problems without the solve_small / solve_fused kernels")
+
+    # cut="device" with the operator sharded over the ranks (slice 12)
+    la = np.full(len(eu), LA_D1)
+    for name, needs in (("cp-dist-device", DIST_DEVICE_KERNELS),
+                        ("cp-dist-device-off", DIST_DEVICE_KERNELS[1:])):
+        cv_d, rx_d, it_d = r0[name][1]
+        same = all(np.array_equal(o[name][1][0], cv_d)
+                   and np.array_equal(o[name][1][1], rx_d) for o in outs)
+        f_d = objective(rx_d[cv_d], pb["a"], pb["y"], eu, ev, la)
+        gaps[name] = (f_d - f_ref) / abs(f_ref)
+        cv_1, rx_1, it_1 = ref[name][1]
+        line(name, f"{CARD}: {it_d} CP iterations, {len(rx_d)} components, "
+             f"cv and rx equal on every rank: {same}; objective {f_d:.9g} "
+             f"against the float64 host cut's {f_ref:.9g} (rel "
+             f"{gaps[name]:.2e}, tol 1e-3); one card's cp_quadratic_d1 "
+             f"{it_1} CP iterations, {len(rx_1)} components, objective "
+             f"{objective(rx_1[cv_1], pb['a'], pb['y'], eu, ev, la):.9g}")
+        check(np.all(np.isfinite(rx_d)) and cv_d.shape == (V_SIDE * V_SIDE,),
+              f"{name}: result not finite or misshapen")
+        check(same, f"{name}: the ranks' partitions or values differ")
+        check(abs(gaps[name]) <= 1e-3, f"{name}: objective {f_d} vs the "
+              f"float64 host cut's {f_ref}")
+        if r0["staged"] or r0["backend"] == "nccl":  # ranks on the card
+            check(all(o[name][2].get(k, 0) > 0 for o in outs for k in needs),
+                  f"{name}: a rank ran without one of {needs}: "
+                  f"{[o[name][2] for o in outs]}")
+
+    # the distributed example's four paths in the same ranks
+    from examples import torch_example_distributed
+    buf = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(buf):
+            torch_example_distributed.report(
+                [o["example-distributed"][1] for o in outs])
+    finally:
+        for ln in buf.getvalue().splitlines():
+            print(f"[example-distributed] {ln}", flush=True)
+    line("example-distributed", f"{CARD}: the example's assertions hold")
     return gaps
 
 
@@ -4336,6 +4452,47 @@ def phase_checkpoint(device="cuda"):
         check(len(files) > 0, "checkpoint: profile() left no trace file")
 
 
+# the quality bars of tests/test_examples.py, by example
+EXAMPLE_BARS = {
+    "EEG": ("raw and cleaned Dice", "dsa >= 0.6, ds >= 0.4",
+            lambda ds, dsa: dsa >= 0.6 and ds >= 0.4),
+    "labeling": ("accuracy of the observations and of the labeling",
+                 "acc_out >= acc_in + 0.2, acc_out >= 0.85",
+                 lambda acc_in, acc_out: (acc_out >= acc_in + 0.2
+                                          and acc_out >= 0.85))}
+
+
+def phase_examples(device="cuda"):
+    """Main path (slice 12): the port's EEG and labeling examples
+    (``examples/torch_example_EEG_CP.py``, ``torch_example_labeling_CP.py``,
+    their ``main``) on the card, each held to the bars of
+    ``tests/test_examples.py``; prints the scores, the wall time (problem
+    made on the host included) and the kernel launches of each."""
+    from examples import torch_example_EEG_CP, torch_example_labeling_CP
+    out = {}
+    for name, mod in (("EEG", torch_example_EEG_CP),
+                      ("labeling", torch_example_labeling_CP)):
+        what, bars, holds = EXAMPLE_BARS[name]
+        before = read_counts()
+        buf = io.StringIO()
+        sync(device)
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            scores = mod.main(device)
+        sync(device)
+        secs = time.perf_counter() - t0
+        grew = {k: v - before[k] for k, v in read_counts().items()
+                if v != before[k]}
+        printed = "; ".join(buf.getvalue().splitlines())
+        print(f"[examples] {name} ({CARD}): {secs:.2f} s; {what} "
+              f"{scores[0]:.4f}, {scores[1]:.4f} (bars {bars}); the "
+              f"example printed: {printed}; launches {grew}", flush=True)
+        check(holds(*scores), f"examples: the {name} example misses its "
+              f"bars ({bars}): {scores}")
+        out[name] = dict(seconds=secs, scores=scores, launches=grew)
+    return out
+
+
 def bound(nbytes, flops):
     """``(bound_ms, bound_by)``: the larger of the bytes over the memory
     rate and the float32 operations over the float32 rate."""
@@ -4400,7 +4557,7 @@ def main():
     launches = dict.fromkeys(counters(), 0)
     paths = (("pfdr", phase_pfdr, (), ("stencil_fused",)),
              ("cp-host", phase_cp, (), ("solve_small",)),
-             ("cp-chain", phase_cp_chain, None,
+             ("cp-chain", phase_cp_chain, lambda f: (f,),
               ("mincut_fused", "components_fused", "stencil_fused",
                "solve_small")),
              ("cp-device", phase_cp_device, (),
@@ -4416,7 +4573,7 @@ def main():
                "solve_fused")),
              ("pfdr-mesh-simplex", phase_pfdr_mesh_simplex, (p_mesh64,),
               ("circulant_fused_simplex",)),
-             ("pfdr-halo", phase_pfdr_halo, (halo_ref, p2_ref),
+             ("pfdr-halo", phase_pfdr_halo, lambda f: (halo_ref, p2_ref, f),
               ("halo_fused",)),
              ("cp-device-mesh", phase_cp_device_mesh, (mesh_cp64,),
               ("banded_gather", "banded_scatter")),
@@ -4425,12 +4582,14 @@ def main():
               ROUTE_AVOIDS),
              ("cp-duplex-device", phase_cp_duplex_device, (),
               ("components_fused",)),
-             ("checkpoint", phase_checkpoint, (), ("stencil_fused",)))
+             ("checkpoint", phase_checkpoint, (), ("stencil_fused",)),
+             ("examples", phase_examples, (), ("solve_small",)))
     f_ref = None
     for name, fn, args, needs, *avoids in paths:
         reset_counts()
         t_path = time.monotonic()
-        out = fn(*(args if args is not None else (f_ref,)))
+        # a callable gives the arguments from cp-host's float64 objective
+        out = fn(*(args(f_ref) if callable(args) else args))
         if name == "cp-host":
             f_ref = out[1]
         counts = read_counts()

@@ -144,17 +144,21 @@ class IdentityOp(QuadOp):
 
 class RankShardedOp(QuadOp):
     """An operator sharded over the ranks of a process group
-    (:mod:`..parallel.cp_dist`): the cut-pursuit loop contracts it through
-    :meth:`reduced`, which sums the reduction over the ranks so that every
-    rank gets the same reduced problem."""
+    (:mod:`..parallel.cp_dist`): every cut-pursuit loop (host, device and
+    chained) contracts it through :meth:`reduced`, which sums the reduction
+    over the ranks so that every rank gets the same reduced problem, and
+    never reads its local blocks as the whole operator."""
 
     #: rows of the dense operator the contraction forms (global, padded);
     #: 0 for an operator without an observation axis (the Gram mode)
     num_obs: int = 0
 
-    def reduced(self, obs, cv, rv_cap: int, pre_at: bool):
+    def reduced(self, obs, cv, rv_cap: int, pre_at: bool, onehot_max: int):
         """``(r_op, mat, ry, lipsch)`` of the problem contracted onto the
-        component assignment ``cv`` (``rv_cap`` padded components)."""
+        component assignment ``cv`` (``rv_cap`` padded components): one-hot
+        products up to ``onehot_max`` components, and for a dense operator
+        segment sums beyond (never premultiplied there), as the device loop
+        contracts a single-device operator."""
         raise NotImplementedError
 
 

@@ -19,13 +19,21 @@ so the port writes them out, in operators that the cut-pursuit loop of
   blocks and the reduced Gram is a sum of the ranks' [rV, rV] parts;
 * diagonal and identity modes: the operator is replicated.
 
+In the device loop and the chain the dense contraction takes the device
+loop's size rule: one-hot products up to ``_ONEHOT_MAX`` components,
+segment sums over the rank's rows beyond (never premultiplied there); a
+Gram beyond it raises, as on one device.
+
 The reduced problem is then the same on every rank, and every rank solves
 it the same way (the ``solve_small`` / ``solve_fused`` kernels on a CUDA
-device, which cannot sum across ranks inside): the combinatorial stages
-(min-cut, components, contraction, merge) run on the host on replicated
-arrays, as in the single-device solver.  The sums over the ranks are added
-in rank order (:func:`.mesh.all_sum`), so every rank holds the same bits
-and takes the same decisions.
+device, which cannot sum across ranks inside).  The combinatorial stages
+(min-cut, components, contraction, merge) run on replicated arrays, as in
+the single-device solver: on the host with ``cut="host"``, on the device
+(the per-iteration device loop or the chained loop) with ``cut="device"``.
+The sums over the ranks are added in rank order (:func:`.mesh.all_sum`)
+and the cut and components kernels repeat bit for bit, so every rank holds
+the same bits and takes the same decisions: the same partition at every
+cut-pursuit iteration, which the next collective relies on.
 """
 from __future__ import annotations
 
@@ -41,6 +49,7 @@ from ..operators import (DenseOp, DiagOp, GramOp, IdentityOp, QuadOp,
 from ..solvers.cut_pursuit import (CPResult, CPState, _one_hot,
                                    cp_quadratic_d1, reduced_dense,
                                    reduced_gram)
+from ..solvers.cut_pursuit_device import _run_sums
 from ..solvers.cut_pursuit_simplex import cp_loss_d1_simplex
 from .dp import DistDenseOp
 from .mesh import Mesh, all_gather, all_sum
@@ -55,11 +64,17 @@ class DistCPDenseOp(DistDenseOp, RankShardedOp):
         super().__init__(a, mesh)
         self.num_obs = a.shape[0] * mesh.size
 
-    def reduced(self, obs, cv, rv_cap: int, pre_at: bool):
+    def reduced(self, obs, cv, rv_cap: int, pre_at: bool, onehot_max: int):
         """``(r_op, mat, ry, lipsch)`` of the problem contracted onto
         ``cv``, the same on every rank: the local [N/P, rV] component
-        column sums, gathered to [N, rV]."""
-        ra_loc = self.a @ _one_hot(cv, rv_cap, self.a.dtype)
+        column sums (a one-hot product up to ``onehot_max`` components,
+        segment sums over the sorted vertices beyond, never premultiplied
+        there), gathered to [N, rV]."""
+        if rv_cap <= onehot_max:
+            ra_loc = self.a @ _one_hot(cv, rv_cap, self.a.dtype)
+        else:
+            ra_loc = _run_sums(self.a.T, cv, rv_cap).T
+            pre_at = False
         ra = all_gather(self.mesh, ra_loc).reshape(self.num_obs, rv_cap)
         y = all_gather(self.mesh, obs).reshape(-1)
         mat, ry, lipsch = reduced_dense(ra, y, rv_cap, pre_at)
@@ -93,9 +108,11 @@ class DistGramOp(GramOp, RankShardedOp):
     def ones_image(self, num_vertices, obs):
         return obs.sum(), all_sum(self.mesh, self.gram.sum())
 
-    def reduced(self, obs, cv, rv_cap: int, pre_at: bool):
+    def reduced(self, obs, cv, rv_cap: int, pre_at: bool, onehot_max: int):
         """The reduced Gram as the sum of the ranks' ``S_loc^t (G_loc S)``
-        parts, the same on every rank."""
+        parts, the same on every rank (one-hot at every size: beyond
+        ``onehot_max`` the device loop raises before it gets here, as for a
+        single-device Gram)."""
         s = _one_hot(cv, rv_cap, self.gram.dtype)
         s_loc = s[self.row0:self.row0 + self.gram.shape[0]]
         raa = all_sum(self.mesh, s_loc.T @ (self.gram @ s))
@@ -159,16 +176,17 @@ def cp_quadratic_d1_dist(op: QuadOp, obs, graph: GraphD1, mesh: Mesh, *,
     Same contract as :func:`..solvers.cut_pursuit.cp_quadratic_d1`; the
     result is the same on every rank.  The operator and observation are
     placed by :func:`shard_cp_quadratic_problem` unless ``op`` is already a
-    sharded operator (then ``obs`` is its share).  The host-small route
-    stays off: it would run the sharded stages on one host, as in the JAX
-    package."""
+    sharded operator (then ``obs`` is its share).  ``cut``, ``chain`` and
+    ``duplex`` pass through as in the JAX package: ``cut="host"`` runs the
+    host loop; ``cut="device"`` the per-iteration device loop or, where
+    :func:`..solvers.cut_pursuit_chain.chain_admissible` admits the
+    problem, the chained loop, with the sharded operator (its gradient and
+    contraction summed over the ranks, the cuts and components replicated).
+    The host-small route stays off: it would run the sharded stages on one
+    host, as in the JAX package."""
     if not isinstance(op, RankShardedOp) and isinstance(
             op, (DenseOp, GramOp, DiagOp, IdentityOp)):
         op, obs = shard_cp_quadratic_problem(op, obs, mesh, axis, device)
-    if isinstance(op, RankShardedOp) and opt.cut == "device":
-        raise NotImplementedError(
-            "cut='device' with a sharded operator: the device loops take "
-            "single-device operators (use the host cut)")
     opt = dataclasses.replace(opt, host_small="off")
     return cp_quadratic_d1(op, obs, graph, la_l1=la_l1,
                            positivity=positivity, bounds=bounds,

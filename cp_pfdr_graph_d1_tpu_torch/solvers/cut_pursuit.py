@@ -150,9 +150,9 @@ def _reduce_operator(kind: str, op_arr, obs, cv, rv_cap: int, pre_at: bool):
     for an operator of kind "dense", "gram" or "diag", or "dist" (then
     ``op_arr`` is the operator: its ``reduced`` method sums the reduction
     over the ranks it is sharded on, and every rank gets the same reduced
-    problem)."""
+    problem; one-hot products at every size, as for the other kinds)."""
     if kind == "dist":
-        return op_arr.reduced(obs, cv, rv_cap, pre_at)
+        return op_arr.reduced(obs, cv, rv_cap, pre_at, onehot_max=rv_cap)
     if kind == "dense":
         mat, ry, lipsch = _reduce_dense(op_arr, obs, cv, rv_cap, pre_at)
         return (GramOp(mat) if pre_at else DenseOp(mat)), mat, ry, lipsch

@@ -45,8 +45,9 @@ import torch
 
 from ..config import CPOptions, numpy_dtype
 from ..graph import GraphD1
-from ..operators import DenseOp, DiagOp, GramOp, IdentityOp, QuadOp
-from ..ops.power_iter import dense_operator_norm
+from ..operators import (DenseOp, DiagOp, GramOp, IdentityOp, QuadOp,
+                         RankShardedOp)
+from ..ops.power_iter import dense_operator_norm, operator_norm
 from ..stencil import StencilGraphD1
 from .cut_pursuit import CPResult, CPState, _kernel_solve, fits_small
 from .cut_pursuit_common import connected_components, machine_eps
@@ -71,7 +72,12 @@ def chain_admissible(op: QuadOp, graph, opt: CPOptions, duplex: bool,
     the reduced kernels do not take; ``chain="on"`` on any device;
     ``"auto"`` for float32 tensors on a CUDA device with a stencil
     graph whose min-cut and components kernels take it
-    (``supports_fused``; the JAX package's ``_stencil_fusable``)."""
+    (``supports_fused``; the JAX package's ``_stencil_fusable``).  A
+    dense or Gram operator sharded over ranks
+    (:class:`..operators.RankShardedOp`) is admitted like its
+    single-device kind, as the JAX chain takes a sharded operator under
+    GSPMD: its warm partition's Lipschitz constant and its contractions
+    cover the whole operator."""
     if opt.chain == "off" or duplex or monitor:
         return False
     if opt.pfdr.dif_rcd != 0 or opt.pfdr.verbose != 0 or opt.verbose != 0:
@@ -91,7 +97,14 @@ def _warm_partition(op: QuadOp, obs, graph: StencilGraphD1, la_l1,
     threshold are active, and each component starts at its mean.  Any
     partition is a valid warm start; this one skips the first cuts'
     shattered phase, and the cuts re-split whatever it over-merges."""
-    if isinstance(op, DenseOp):
+    if isinstance(op, RankShardedOp):
+        # the whole operator's norm, by power iteration through products
+        # summed over the ranks (the rank's rows alone give too small a
+        # constant, so too large a step)
+        lip0 = float(operator_norm(lambda x: op.apply_t(op.apply(x)),
+                                   graph.num_vertices, obs.dtype,
+                                   obs.device))
+    elif isinstance(op, DenseOp):
         lip0 = float(dense_operator_norm(op.a))
     elif isinstance(op, DiagOp):
         lip0 = float(op.diag.max())

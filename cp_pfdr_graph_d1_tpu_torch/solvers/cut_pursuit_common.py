@@ -23,6 +23,10 @@ from scipy.sparse import csgraph
 from ..banded_graph import BandedGraphD1
 from ..graph import GraphD1
 
+# above this component count the [V, rV] one-hot contractions give way to
+# sorted segment sums (the one-hot selector would take O(V rV) memory)
+_ONEHOT_MAX = 4096
+
 
 def bucket(n: int, minimum: int = 8) -> int:
     """Next power-of-two capacity >= n."""

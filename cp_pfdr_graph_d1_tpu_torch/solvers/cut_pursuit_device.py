@@ -27,7 +27,9 @@ CP iteration.  Here the whole iteration stays on the tensors' device:
   adds ``eps |x_c - x_c| = 0`` to the objective, so the minimizer is
   unchanged);
 * reduced operator and solve: one-hot products up to ``_ONEHOT_MAX``
-  components and sorted segment sums beyond, then one whole-solve kernel
+  components and sorted segment sums beyond (an operator sharded over
+  ranks, :mod:`..parallel.cp_dist`, contracts itself by the same rule and
+  sums over the ranks), then one whole-solve kernel
   (:func:`.cut_pursuit._kernel_solve`: ``solve_small`` when the problem
   fits its shared memory and has fewer vertices than
   ``SOLVE_FUSED_MIN_RV_CAP`` gives for the operator's kind, ``solve_fused``
@@ -59,7 +61,7 @@ from .. import maxflow
 from ..config import CPOptions, Lipsch, numpy_dtype
 from ..graph import GraphD1
 from ..maxflow.device import _pdhg_min_cut, _pdhg_min_cut_duplex
-from ..operators import DenseOp, DiagOp, GramOp, QuadOp
+from ..operators import DenseOp, DiagOp, GramOp, QuadOp, RankShardedOp
 from ..ops.components import connected_components_device
 from ..ops.components_fused import (compact_labels_device,
                                     device_components_stencil_fused)
@@ -68,13 +70,10 @@ from ..ops.power_iter import dense_operator_norm
 from ..stencil import StencilGraphD1
 from .cut_pursuit import (CPResult, CPState, _kernel_solve, _objective,
                           _reduce_dense, _reduce_diag, _reduce_gram)
-from .cut_pursuit_common import (bucket, machine_eps, make_reduced_container,
-                                 reduced_solve_route)
+from .cut_pursuit_common import (_ONEHOT_MAX, bucket, machine_eps,
+                                 make_reduced_container, reduced_solve_route)
 from .pfdr_quadratic import VertexProx, pfdr_quadratic_d1
 
-# above this component count the [V, rV] one-hot contractions give way to
-# sorted segment sums (the one-hot selector would take O(V rV) memory)
-_ONEHOT_MAX = 4096
 # an uncertified device cut continues for up to this many times cut_it_max
 # more steps before the host redo (CPU tensors) or an error (CUDA tensors)
 CONTINUE_FACTOR = 4
@@ -310,31 +309,39 @@ def _evolution(x, x_prev, eps: float):
 
 
 def _reduced_problem(op: QuadOp, obs, cv, num_comp: int, rv_cap: int,
-                     pfdr_it_prev: int, pre_at_allowed: bool = True):
+                     pfdr_it_prev: int, pre_at_allowed: bool = True,
+                     onehot_max: int = _ONEHOT_MAX):
     """Reduced operator, observation and DIAG Lipschitz metric on the
     partition ``cv`` (``CP_PFDR_graph_quadratic_d1_l1.cpp:663-836``):
-    ``(r_op, mat, ry, lipsch)``."""
-    if isinstance(op, DenseOp):
-        n_obs = op.a.shape[0]
-        pre_at = (pre_at_allowed and rv_cap <= _ONEHOT_MAX
+    ``(r_op, mat, ry, lipsch)``; one-hot products up to ``onehot_max``
+    components, segment sums beyond.  A rank-sharded operator contracts
+    itself (:meth:`..operators.RankShardedOp.reduced`, the same result on
+    every rank); its premultiplication rule counts the global observation
+    axis, as the host loop does."""
+    if isinstance(op, GramOp) and rv_cap > onehot_max:
+        raise ValueError(
+            f"premultiplied (A^t A) mode cannot contract to {num_comp} "
+            "components (the [rV, rV] reduced Gram does not fit); pass "
+            "the dense operator instead")
+    if isinstance(op, (DenseOp, RankShardedOp)):
+        n_obs = (op.num_obs if isinstance(op, RankShardedOp)
+                 else op.a.shape[0])
+        pre_at = (pre_at_allowed and rv_cap <= onehot_max
                   and num_comp < (2 * n_obs * pfdr_it_prev)
                   // (n_obs + pfdr_it_prev))
-        if rv_cap <= _ONEHOT_MAX:
+        if isinstance(op, RankShardedOp):
+            return op.reduced(obs, cv, rv_cap, pre_at, onehot_max)
+        if rv_cap <= onehot_max:
             mat, ry, lipsch = _reduce_dense(op.a, obs, cv, rv_cap, pre_at)
         else:
             mat, ry, lipsch = _segment_reduce_dense(op.a, obs, cv, rv_cap)
         return (GramOp(mat) if pre_at else DenseOp(mat)), mat, ry, lipsch
     if isinstance(op, GramOp):
-        if rv_cap > _ONEHOT_MAX:
-            raise ValueError(
-                f"premultiplied (A^t A) mode cannot contract to {num_comp} "
-                "components (the [rV, rV] reduced Gram does not fit); pass "
-                "the dense operator instead")
         mat, ry, lipsch = _reduce_gram(op.gram, obs, cv, rv_cap)
         return GramOp(mat), mat, ry, lipsch
     diag = (op.diag if isinstance(op, DiagOp)
             else torch.ones(cv.shape[0], dtype=obs.dtype, device=obs.device))
-    if rv_cap <= _ONEHOT_MAX:
+    if rv_cap <= onehot_max:
         rdiag, ry, lipsch = _reduce_diag(diag, obs, cv, rv_cap)
     else:
         rdiag, ry, lipsch = _segment_reduce_diag(diag, obs, cv, rv_cap)

@@ -289,6 +289,139 @@ def cp_dist_cases(mesh):
     res = cp_loss_d1_simplex_dist(graph(eu, ev, la), q, mesh, al=0.5,
                                   opt=sopt, monitor=True, device="cpu")
     out["simplex"] = dict(cv=res.cv, rp=res.rp, it=res.it, obj=res.obj)
+    out.update(cp_dist_device_cases(mesh))
+    out["reduced"] = cp_dist_reduced_cases(mesh)
+    return out
+
+
+def cp_stencil_weights(h=8, w=8, seed=3):
+    """``cp_problem``'s edge weights as the shift weights of a stencil
+    ``{(0, 1): [h, w], (1, 0): [h, w]}`` (zero where an edge leaves the
+    field): the same graph as its COO edge list."""
+    _, _, la, _, _ = cp_problem(h, w, seed=seed)
+    right = np.zeros((h, w))
+    right[:, :-1] = la[:h * (w - 1)].reshape(h, w - 1)
+    down = np.zeros((h, w))
+    down[:-1, :] = la[h * (w - 1):].reshape(h - 1, w)
+    return {(0, 1): right, (1, 0): down}
+
+
+def cp_dist_device_options(**kw):
+    """The ``cut="device"`` cases' options (``test_torch_cp_dist.py``):
+    ``(dense/chain options, Gram/duplex options)`` with ``kw`` added."""
+    from cp_pfdr_graph_d1_tpu_torch import CPOptions, PFDROptions
+    return (CPOptions(dif_tol=1e-5, it_max=10, host_small="off",
+                      pfdr=PFDROptions(rho=1.5, dif_tol=1e-9, it_max=5000),
+                      cut="device", **kw),
+            CPOptions(dif_tol=1e-5, it_max=8, host_small="off",
+                      pfdr=PFDROptions(dif_tol=1e-9, it_max=5000),
+                      cut="device", **kw))
+
+
+def cp_dist_device_cases(mesh):
+    """The ``cut="device"`` cases of ``test_torch_cp_dist.py``: the dense
+    operator through the per-iteration device loop and the chained loop
+    (on the stencil of the same graph), the Gram operator, and positivity
+    with the duplex cut; each with the number of device cuts it ran."""
+    from cp_pfdr_graph_d1_tpu_torch import (DenseOp, GraphD1, GramOp,
+                                            StencilGraphD1)
+    from cp_pfdr_graph_d1_tpu_torch.parallel import cp_quadratic_d1_dist
+    from cp_pfdr_graph_d1_tpu_torch.solvers import cut_pursuit_chain as chn
+    from cp_pfdr_graph_d1_tpu_torch.solvers import cut_pursuit_device as cpd
+    cuts = [0]
+
+    def counting(fn):
+        def wrapped(*args, **kw):
+            cuts[0] += 1
+            return fn(*args, **kw)
+        return wrapped
+
+    patched = [(m, name, getattr(m, name)) for m, name in
+               ((cpd, "_device_cut"), (cpd, "_device_cut_duplex"),
+                (chn, "_device_cut"))]
+    for m, name, fn in patched:
+        setattr(m, name, counting(fn))
+    out = {}
+    try:
+        def run(name, op, obs, g, **kw):
+            cuts[0] = 0
+            res = cp_quadratic_d1_dist(op, obs, g, mesh, device="cpu", **kw)
+            out[name] = dict(cv=res.cv, rx=res.rx, it=res.it, cuts=cuts[0])
+
+        def coo(eu, ev, la):
+            return GraphD1.create(eu, ev, la, dtype=torch.float64,
+                                  device="cpu")
+
+        eu, ev, la, a, y = cp_problem()
+        la_l1 = np.full(a.shape[1], 0.02)
+        for chain in ("off", "on"):
+            opt, _ = cp_dist_device_options(chain=chain)
+            g = (coo(eu, ev, la) if chain == "off" else
+                 StencilGraphD1.create((8, 8), cp_stencil_weights(),
+                                       dtype=torch.float64, device="cpu"))
+            run(f"device_{chain}", DenseOp(torch.as_tensor(a)),
+                torch.as_tensor(y), g, la_l1=la_l1, opt=opt)
+        _, opt8 = cp_dist_device_options(chain="off")
+        eu, ev, la, a, y = cp_problem(n=128, seed=7)
+        run("device_gram", GramOp(torch.as_tensor(a.T @ a)),
+            torch.as_tensor(a.T @ y), coo(eu, ev, la), la_l1=la_l1, opt=opt8)
+        eu, ev, la, a, y = cp_problem(seed=5)
+        run("device_duplex", DenseOp(torch.as_tensor(a)), torch.as_tensor(y),
+            coo(eu, ev, la), la_l1=np.full(a.shape[1], 0.05),
+            positivity=True, duplex=True, opt=opt8)
+    finally:
+        for m, name, fn in patched:
+            setattr(m, name, fn)
+    return out
+
+
+# (name, components, previous PFDR iterations, one-hot cap) of the
+# contraction cases: premultiplied, not premultiplied, and beyond a cap
+# forced down to 32 components (segment sums)
+REDUCED_CASES = (("premultiplied", 60, 60, None),
+                 ("dense", 60, 1, None),
+                 ("segment", 50, 1000, 32))
+
+
+def cp_dist_reduced_cases(mesh):
+    """``_reduced_problem`` of the sharded operators against the same call
+    on the whole single-device operator in this rank: per case of
+    ``REDUCED_CASES`` (and the Gram operator within and beyond the cap)
+    ``{"dist": (kind, mat, ry, lipsch), "single": ...}``, or the two
+    errors' messages."""
+    from cp_pfdr_graph_d1_tpu_torch import DenseOp, GramOp
+    from cp_pfdr_graph_d1_tpu_torch.parallel import \
+        shard_cp_quadratic_problem
+    from cp_pfdr_graph_d1_tpu_torch.solvers.cut_pursuit_common import bucket
+    from cp_pfdr_graph_d1_tpu_torch.solvers.cut_pursuit_device import \
+        _reduced_problem
+
+    def reduced(op, obs, cv, num_comp, it_prev, cap):
+        kw = {} if cap is None else dict(onehot_max=cap)
+        try:
+            r_op, mat, ry, lipsch = _reduced_problem(
+                op, obs, cv, num_comp, bucket(num_comp), it_prev, **kw)
+        except ValueError as e:
+            return str(e)
+        return (type(r_op).__name__, mat.numpy(), ry.numpy(),
+                lipsch.numpy())
+
+    out = {}
+    r = np.random.default_rng(13)
+    _, _, _, a, y = cp_problem()
+    cases = [(name, DenseOp(torch.as_tensor(a)), torch.as_tensor(y), n, it,
+              cap) for name, n, it, cap in REDUCED_CASES]
+    _, _, _, a, y = cp_problem(n=128, seed=7)
+    g = GramOp(torch.as_tensor(a.T @ a))
+    cases += [("gram", g, torch.as_tensor(a.T @ y), 40, 1000, None),
+              ("gram_beyond", g, torch.as_tensor(a.T @ y), 40, 1000, 32)]
+    for name, op, obs, num_comp, it_prev, cap in cases:
+        cv = torch.as_tensor(np.concatenate([
+            np.arange(num_comp), r.integers(0, num_comp, 64 - num_comp)]))
+        dop, dobs = shard_cp_quadratic_problem(op, obs, mesh, device="cpu")
+        out[name] = dict(
+            dist=reduced(dop, dobs, cv, num_comp, it_prev, cap),
+            single=reduced(op, obs, cv, num_comp, it_prev, cap))
     return out
 
 
