@@ -55,8 +55,10 @@ It imports nothing of JAX.  Phases, one or more lines each:
 10. on ``bench.py:build_mesh_problem``'s Delaunay mesh (19,600 vertices,
    strip-ordered by the port's ``strip_order``): ``banded_gather`` and
    ``banded_scatter`` (and on a 4,096-vertex star, a hub of 4,096 slots;
-   ``index_select`` and ``index_add_`` timed beside them, and the host
-   cost of each step of their launch path, ``[banded-host]``),
+   one kernel a call in torch.profiler; ``index_select`` and
+   ``index_add_`` timed beside them by CUDA events and device time, an
+   empty kernel's device time as the launch floor, and the host cost of
+   each step of their launch path, ``[banded-host]``; K = 1, 3, 4 and 12),
    ``banded_fused``, ``circulant_fused`` (64 families and a banded
    remainder; and the 140 x 140 grid as a circulant container, no
    remainder) and ``circulant_fused_simplex`` (K = 4, four losses, and
@@ -112,7 +114,9 @@ It imports nothing of JAX.  Phases, one or more lines each:
    ``BandedGraphD1``: the plain PDHG cut and components on the card, the
    banded graph's float transfers through ``banded_gather`` /
    ``banded_scatter``; at most 1e-3 above the float64 host cut; ms per CP
-   iteration, PDHG steps per cut and component rounds per call);
+   iteration, PDHG steps per cut and component rounds per call; the banded
+   run under torch.profiler, ``[profile] cp-device-mesh``: its device busy
+   time and its scatters' and gathers' share);
    ``route-fallback`` (a 140 x 140 stencil of 17 shift families through
    PFDR and ``cut="device"`` cut-pursuit, K = 33 multi-label PFDR on the
    140 x 140 stencil and on the mesh's ``CirculantGraphD1``, all on the
@@ -123,8 +127,9 @@ It imports nothing of JAX.  Phases, one or more lines each:
    plain duplex cut, against the host duplex cut at 1e-3; and the
    per-iteration device loop without duplex, timed); ``checkpoint``
    (``utils.save_state`` / ``load_state`` of a float64 PFDR state resumed
-   on the card bit for bit, of a cut-pursuit state, and ``utils.profile``
-   leaving a trace).
+   on the card bit for bit, of a float64 cut-pursuit state resumed within
+   1e-4 of the uninterrupted solve, of a float32 one held to the float64
+   host cut at 1e-3, and ``utils.profile`` leaving a trace).
 15. slice 12: in the P = 2 ranks of ``pfdr-halo``, ``cp-dist-device``
    (``parallel.cp_quadratic_d1_dist`` with ``cut="device"`` on the EEG
    problem's 140 x 140 stencil in float32, the operator's rows sharded over
@@ -147,6 +152,12 @@ calls and the two quadratic mesh solves' iterations, ``solve_small``'s 300
 iterations on the main shapes, the EEG host cut, the ``mincut_fused``
 steps and the banded per-call times), which an older checkout of the port
 can run with its own kernels when this script is copied into its root.
+
+``python3 chip_smoke.py --banded-parent DIR`` runs only the ``[banded]``
+phase, with the ``banded_gather`` / ``banded_scatter`` kernels of the
+port checkout at ``DIR`` (built from ``DIR``'s ``csrc``; unpack it with
+``git archive`` into a git-ignored directory) timed in turns with this
+tree's.
 
 The line before the last is the JSON kernel report; the last line is the
 JSON result.  Any failed check raises, and the script then exits with a
@@ -220,28 +231,35 @@ def cuda_ms(fn, reps):
     return start.elapsed_time(stop) / reps
 
 
-def device_profile(fn, reps, counts=None):
+def device_profile(fn, reps, counts=None, tries=3):
     """Device time of ``reps`` calls of ``fn`` from torch.profiler's CUDA
     activity: ``(device us per call, {kernel name: us per call}, host-clock
     us per call of the profiled window)``; ``counts``, a dict, receives
-    each item's number of launches or copies."""
+    each item's number of launches or copies.  A window that recorded no
+    device activity at all (it happens about once in a dozen windows on
+    the H100) is profiled again, up to ``tries`` windows."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e6 / reps
-    per = {}
-    for ev in prof.key_averages():
-        t = getattr(ev, "self_device_time_total", 0.0)
-        if t > 0:
-            per[ev.key] = t / reps
-            if counts is not None:
-                counts[ev.key] = ev.count
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e6 / reps
+        per = {}
+        if counts is not None:
+            counts.clear()
+        for ev in prof.key_averages():
+            t = getattr(ev, "self_device_time_total", 0.0)
+            if t > 0:
+                per[ev.key] = t / reps
+                if counts is not None:
+                    counts[ev.key] = ev.count
+        if per:
+            break
     return sum(per.values()), per, wall
 
 
@@ -2521,15 +2539,209 @@ def banded_host_costs(g, x, vu, vv):
           flush=True)
     return costs
 
+# An empty kernel, built beside the port's library at run time (into its
+# git-ignored build directory): the launch floor the banded transfers are
+# held to.  ``--banded-parent DIR`` also builds the banded.cu of the port
+# checkout at DIR, timed in turns with this tree's kernels.
+EMPTY_KERNEL_CU = r"""
+#include <cuda_runtime.h>
+__global__ void cp_empty_kernel() {}
+extern "C" int cp_empty_launch(int blocks, int threads, void *stream) {
+  cp_empty_kernel<<<blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>();
+  return static_cast<int>(cudaGetLastError());
+}
+"""
+_EXTRA = {}
+
+
+def start_extra_builds(parent=None):
+    """Starts building the empty kernel and, given the root ``parent`` of
+    another port checkout, its banded.cu, in a thread (``nvcc`` processes
+    of their own, which may run beside the port's build); ``extra_libs()``
+    waits for them."""
+    import concurrent.futures
+    from pathlib import Path
+    from cp_pfdr_graph_d1_tpu_torch import _build
+
+    def nvcc(include):
+        arch = _build.CUDA_ARCH.removeprefix("sm_")
+        return [_build.nvcc_path(),
+                f"-gencode=arch=compute_{arch},code={_build.CUDA_ARCH}",
+                "-std=c++17", "-O3", "-Xcompiler", "-fPIC", f"-I{include}"]
+
+    def build():
+        _build.BUILD_DIR.mkdir(exist_ok=True)
+        src = _build.BUILD_DIR / "cp_empty_kernel.cu"
+        if not src.exists() or src.read_text() != EMPTY_KERNEL_CU:
+            src.write_text(EMPTY_KERNEL_CU)
+        pool = concurrent.futures.ThreadPoolExecutor(2)
+        empty = pool.submit(_build._load, "cp_empty_kernel", [src],
+                            nvcc(_build.BUILD_DIR))
+        old = None
+        if parent is not None:
+            csrc = _EXTRA["parent_csrc"]
+            old = pool.submit(_build._load, "cp_banded_parent",
+                              [csrc / "banded.cu"], nvcc(csrc),
+                              [csrc / "pfdr_common.cuh"])
+        return empty.result(), old and old.result()
+
+    if parent is not None:
+        csrc = Path(parent).resolve() / "cp_pfdr_graph_d1_tpu_torch" / "csrc"
+        check((csrc / "banded.cu").exists(), f"no banded.cu under {csrc}")
+        _EXTRA["parent_csrc"] = csrc
+
+    _EXTRA["future"] = concurrent.futures.ThreadPoolExecutor(1).submit(build)
+
+
+def extra_libs():
+    """``(empty-kernel library, the parent's banded library or None)``."""
+    if "future" not in _EXTRA:
+        start_extra_builds()
+    return _EXTRA["future"].result()
+
+
+def empty_kernel_us(blocks, threads, reps=200):
+    """An empty kernel of ``blocks`` x ``threads``: ``(device us, us per
+    call between CUDA events)``."""
+    import ctypes
+    import torch
+    lib = extra_libs()[0]
+    fn = lib.cp_empty_launch
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+
+    def launch():
+        check(fn(blocks, threads, torch.cuda.current_stream().cuda_stream)
+              == 0, "empty kernel launch failed")
+
+    return device_profile(launch, reps)[0], cuda_ms(launch, reps) * 1e3
+
+
+def parent_banded(g, x, vu, vv):
+    """The parent checkout's ``banded_gather`` / ``banded_scatter`` on the
+    float32 [V] field ``x`` and edge values ``vu``, ``vv`` of ``g``, as
+    two callables; its plan is filled by field name from its own source's
+    ``BandedPlan`` (``tests/_torch_cuda_source.cuda_struct``).  None
+    without ``--banded-parent``."""
+    import ctypes
+    from cp_pfdr_graph_d1_tpu_torch.ops import banded
+    from tests._torch_cuda_source import cuda_struct
+    lib = extra_libs()[1]
+    if lib is None:
+        return None
+    src = "".join((_EXTRA["parent_csrc"] / n).read_text()
+                  for n in ("banded.cu", "pfdr_common.cuh"))
+    plan_t = cuda_struct(src, "BandedPlan")
+    lib.cp_banded_plan_size.restype = ctypes.c_int
+    check(lib.cp_banded_plan_size() == ctypes.sizeof(plan_t),
+          "the parent's BandedPlan disagrees with its library")
+    idx = g.edge_index()
+    lanes, tiles, n_long = banded.launch_shape(idx.offsets.cpu().numpy(),
+                                               idx.long_rows)
+    vals = dict(eu=idx.eu.data_ptr(), ev=idx.ev.data_ptr(),
+                offsets=idx.offsets.data_ptr(), slots=idx.slots.data_ptr(),
+                long_rows=idx.long_rows.data_ptr(), ne=g.num_edges,
+                nv=g.num_vertices, n_long=n_long, k=1, lanes=lanes,
+                tiles=tiles, device=x.device.index)
+    names = [n for n, _ in plan_t._fields_]
+    check(set(names) <= set(vals), f"the parent's BandedPlan has fields "
+          f"this comparison does not fill: {set(names) - set(vals)}")
+    plan = plan_t(**{n: vals[n] for n in names})
+    fg, fs = lib.cp_banded_gather_f32, lib.cp_banded_scatter_f32
+    for fn, n in ((fg, 4), (fs, 5)):
+        fn.restype = ctypes.c_int
+        fn.argtypes = [ctypes.c_void_p] * n
+    return (plan_call(fg, plan, (x,), (2, g.num_edges), "parent gather"),
+            plan_call(fs, plan, (vu, vv), (g.num_vertices,),
+                      "parent scatter"))
+
+
+def plan_call(fn, plan, inputs, out_shape, what):
+    """A call of a banded library entry ``fn`` on ``plan`` (a ctypes
+    structure, kept alive by the call): the output allocated like
+    ``inputs[0]``, the inputs' pointers, the output's and the current
+    stream passed; raises if the launch fails."""
+    import ctypes
+    import torch
+    addr = ctypes.addressof(plan)
+
+    def call():
+        out = inputs[0].new_empty(out_shape)
+        check(fn(addr, *(a.data_ptr() for a in inputs), out.data_ptr(),
+                 torch.cuda.current_stream().cuda_stream) == 0,
+              f"{what} launch failed")
+        return out
+
+    call.plan = plan
+    return call
+
+
+def banded_turns(g, x, vu, vv, reps=100):
+    """This tree's banded kernels and the parent's (``parent_banded``) on
+    the same float32 [V] inputs, timed in turns (parent, new, new,
+    parent): device us (torch.profiler) and us per call (CUDA events) of
+    each turn, the parent's outputs held to the new ones (gather equal,
+    scatter within F32_TOL).  None without ``--banded-parent``."""
+    import torch
+    from cp_pfdr_graph_d1_tpu_torch.ops import banded
+    old = parent_banded(g, x, vu, vv)
+    if old is None:
+        return None
+    new = (lambda: banded.banded_gather(g, x),
+           lambda: banded.banded_scatter(g, vu, vv))
+    check(torch.equal(old[0](), torch.stack(new[0]())),
+          "the parent's gather differs from this tree's")
+    s_old, s_new = old[1](), new[1]()
+    check(max_err(s_old, s_new) / max(1.0, float(s_new.abs().max()))
+          <= F32_TOL, "the parent's scatter differs from this tree's")
+    out = {}
+    for who in ("parent", "new", "new", "parent"):
+        fns = old if who == "parent" else new
+        for kern, fn in zip(("gather", "scatter"), fns):
+            out.setdefault(who, {}).setdefault(kern, []).append(dict(
+                device_us=device_profile(fn, reps)[0],
+                us=cuda_ms(fn, reps) * 1e3))
+    return out
+
+
+def banded_parent_only(parent):
+    """``python3 chip_smoke.py --banded-parent DIR``: the ``[banded]`` phase
+    alone, with the kernels of the port checkout at ``DIR`` timed in turns
+    with this tree's (``banded_turns``)."""
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    phase_env()
+    start_extra_builds(parent)
+    phase_build()
+    phase_banded_transfers()
+
+
+def one_launch(fn, reps=20):
+    """``(kernels, launches per call)`` of ``fn`` in torch.profiler's CUDA
+    activity: the distinct kernels it runs and the most launches of one
+    of them per call (the profiler may drop an event at the start of its
+    window, never add one)."""
+    counts = {}
+    _, per, _ = device_profile(fn, reps, counts)
+    return sorted(per), max(counts.values(), default=0) / reps
+
 
 def phase_banded_transfers(device="cuda"):
     """``banded_gather`` and ``banded_scatter`` against their plain versions
     on the mesh's banded container and on a star graph (vertex 0 joined to
-    4,095 leaves: a hub row of 4,095 slots), for [V] and [V, 4] fields, in
-    float64 (1e-12) and float32 (F32_TOL relative to the largest value);
-    float32 [V] times beside ``torch.index_select`` (the gather in one
-    call on the concatenated endpoints) and two ``index_add_`` calls into
-    zeros (the scatter; its float atomics make it nondeterministic)."""
+    4,095 leaves: a hub row of 4,096 slots), for [V] and [V, 4] fields and
+    for [V, 3] (a K that 2 does not divide: one column a load) and [V, 12]
+    (the scatter's column chunks: 8 columns, then 4), in float64 (1e-12)
+    and float32 (F32_TOL relative to the largest value), two calls
+    bit-equal,
+    each scatter call one kernel launch (torch.profiler; each gather call
+    too, in float32); float32 [V] times
+    (CUDA events and device time) beside ``torch.index_select`` (the
+    gather in one call on the concatenated endpoints) and two
+    ``index_add_`` calls into zeros (the scatter; its float atomics make
+    it nondeterministic), an empty kernel's device time (the launch
+    floor: one block of 32 threads, and the scatter's grid) and, with
+    ``--banded-parent``, another checkout's kernels timed in turns with
+    these (``banded_turns``)."""
     import torch
     from cp_pfdr_graph_d1_tpu_torch import BandedGraphD1
     from cp_pfdr_graph_d1_tpu_torch.ops import banded
@@ -2545,7 +2757,7 @@ def phase_banded_transfers(device="cuda"):
         tol = 1e-12 if dtype == torch.float64 else F32_TOL
         for gname, g in graphs.items():
             r = np.random.default_rng(5)
-            for k in (None, K_SIMPLEX):
+            for k in (None, K_SIMPLEX, 3, 12):
                 shape = (g.num_vertices,) + (() if k is None else (k,))
                 eshape = (g.num_edges,) + shape[1:]
                 x = torch.as_tensor(r.normal(size=shape), dtype=dtype,
@@ -2575,6 +2787,19 @@ def phase_banded_transfers(device="cuda"):
                         f"max|kernel-plain| {g_err:.3e}, scatter "
                         f"max|kernel-plain|/max(1,max|plain|) {s_err:.3e} "
                         f"(tol {tol:g}), repeat bit-equal")
+                if device == "cuda":
+                    calls = [("scatter",
+                              lambda: banded.banded_scatter(g, vu, vv))]
+                    if dtype == torch.float32:
+                        calls.append(
+                            ("gather", lambda: banded.banded_gather(g, x)))
+                    for kname, fn in calls:
+                        kinds, per_call = one_launch(fn)
+                        check(len(kinds) == 1 and 0 < per_call <= 1,
+                              f"banded_{kname} {gname} {dtype} K={k or 1}: "
+                              f"not one kernel a call: {kinds} "
+                              f"{per_call}")
+                        line += f"; {kname} one kernel a call ({kinds[0]})"
                 if dtype == torch.float32 and k is None and device == "cuda":
                     idx = g.edge_index()
                     both = torch.cat([idx.eu, idx.ev]).to(torch.int64)
@@ -2584,15 +2809,30 @@ def phase_banded_transfers(device="cuda"):
                     t_s = time_pair(
                         lambda: banded.banded_scatter(g, vu, vv),
                         lambda: banded.banded_scatter_plain(g, vu, vv))
-                    t_g["library_ms"] = cuda_ms(
-                        lambda: x.index_select(0, both), 200)
-                    t_s["library_ms"] = cuda_ms(
-                        lambda: torch.zeros_like(x).index_add_(
-                            0, eu64, vu).index_add_(0, ev64, vv), 200)
+                    def select():
+                        return x.index_select(0, both)
+
+                    def add2():
+                        return torch.zeros_like(x).index_add_(
+                            0, eu64, vu).index_add_(0, ev64, vv)
+
+                    for t, fn in ((t_g, select), (t_s, add2)):
+                        t["library_ms"] = cuda_ms(fn, 200)
+                        t["library_device_us"] = device_profile(fn, 200)[0]
+                    offsets = idx.offsets.cpu().numpy()
+                    lanes, tiles, _ = banded.launch_shape(offsets,
+                                                          idx.long_rows)
+                    grid = tiles + len(banded.long_segments(
+                        offsets, idx.long_rows.cpu().numpy())[0])
+                    floor = {"1x32": empty_kernel_us(1, 32),
+                             f"{grid}x{banded.BLOCK}":
+                                 empty_kernel_us(grid, banded.BLOCK)}
                     out[gname] = dict(
                         v=g.num_vertices, e=g.num_edges,
-                        long_rows=int(idx.long_rows.numel()),
-                        gather=t_g, scatter=t_s)
+                        long_rows=int(idx.long_rows.numel()), lanes=lanes,
+                        gather=t_g, scatter=t_s,
+                        launch_floor_us={n: f[0] for n, f in floor.items()},
+                        turns=banded_turns(g, x, vu, vv))
                     if gname == "mesh":
                         out["host"] = banded_host_costs(g, x, vu, vv)
                     line += "; float32 per call:"
@@ -2601,9 +2841,31 @@ def phase_banded_transfers(device="cuda"):
                         line += (f" {kname} {t['ms'] * 1e3:.2f} us "
                                  f"({t['device_us']:.2f} us of device time;"
                                  f" plain {t['plain_ms'] * 1e3:.2f}, {lib} "
-                                 f"{t['library_ms'] * 1e3:.2f});")
+                                 f"{t['library_ms'] * 1e3:.2f}, "
+                                 f"{t['library_device_us']:.2f} of device "
+                                 f"time);")
                     line += (f" rows of more than {banded.LONG_ROW} slots: "
-                             f"{int(idx.long_rows.numel())}")
+                             f"{int(idx.long_rows.numel())}, {lanes} lanes "
+                             f"a vertex; empty kernel (launch floor): " +
+                             ", ".join(f"{n} {d:.2f} us of device time "
+                                       f"({c:.2f} per call)"
+                                       for n, (d, c) in floor.items()) +
+                             f" ({CARD})")
+                    turns = out[gname]["turns"]
+                    if turns is None:
+                        line += "; not timed in turns (no --banded-parent)"
+                    else:
+                        line += "; in turns (parent, new, new, parent), " \
+                            "device us / us per call:" + "".join(
+                                f" {kn} " + ", ".join(
+                                    f"{who} {t['device_us']:.2f} / "
+                                    f"{t['us']:.2f}"
+                                    for who, t in (
+                                        ("parent", turns["parent"][kn][0]),
+                                        ("new", turns["new"][kn][0]),
+                                        ("new", turns["new"][kn][1]),
+                                        ("parent", turns["parent"][kn][1])))
+                                + ";" for kn in ("gather", "scatter"))
                 errs = out.setdefault("err", {})
                 for kern, e in (("gather", g_err), ("scatter", s_err)):
                     key = (kern, gname, dtype)
@@ -4088,8 +4350,14 @@ def phase_cp_device_mesh(f64, device="cuda"):
     COO ``GraphD1`` (the plain cut and components on the card) and on a
     ``BandedGraphD1`` (the same loops, their float gathers and sums through
     ``banded_gather`` / ``banded_scatter``); each at most 1e-3 above the
-    float64 host cut, beside the float32 host cut on the same mesh."""
+    float64 host cut, beside the float32 host cut on the same mesh.  The
+    banded run goes under torch.profiler (CUDA activity), so its host time
+    includes the profiler's cost: ``[profile] cp-device-mesh`` gives its
+    device busy time and the device time and launches of its scatters and
+    gathers (``out["banded"]["profile"]``)."""
+    import contextlib
     import torch
+    from torch.profiler import ProfilerActivity, profile
     eu, ev, a, y = build_mesh_problem()
     f32 = torch.float32
     g = mesh_coo(f32, device)
@@ -4104,15 +4372,20 @@ def phase_cp_device_mesh(f64, device="cuda"):
         g = mesh_coo(f32, device) if kind == "coo" else mesh_graph(
             "banded", f32, device)
         before = read_counts()
-        with CutRecorder() as rec:
+        with CutRecorder() as rec, (
+                profile(activities=[ProfilerActivity.CUDA])
+                if kind == "banded" else contextlib.nullcontext()) as prof:
             t, res = lasso_cp(g, a, y, f32, device, cut="device")
+            torch.cuda.synchronize()
         grew = {k: v - before[k] for k, v in read_counts().items()}
         f = cp_objective(res, a, y, g)
         check(np.all(np.isfinite(res.rx)) and res.cv.shape == (a.shape[1],),
               f"cp-device-mesh {kind}: result not finite or misshapen")
         cuts = len(rec.steps)
         print(f"[cp-device-mesh] float32 {type(g).__name__}, cut='device' "
-              f"chain='auto' (per-iteration loop): {t * 1e3:.1f} ms, "
+              f"chain='auto' (per-iteration loop"
+              f"{', under torch.profiler' if prof is not None else ''}): "
+              f"{t * 1e3:.1f} ms, "
               f"{res.it} CP iterations, {t * 1e3 / max(res.it, 1):.1f} ms "
               f"per CP iteration, {len(res.rx)} components; "
               f"{rec.summary()}; {sum(rec.steps)} PDHG steps in all; "
@@ -4131,6 +4404,38 @@ def phase_cp_device_mesh(f64, device="cuda"):
         out[kind] = dict(ms=t * 1e3, it=res.it, cuts=cuts,
                          steps=sum(rec.steps), rounds=rec.rounds,
                          launches=grew)
+        if prof is not None:
+            out[kind]["profile"] = banded_share(prof, t, res.it)
+    return out
+
+
+def banded_share(prof, t, iters):
+    """``[profile] cp-device-mesh``: from the profile ``prof`` of the banded
+    device cut-pursuit (``t`` seconds on the host clock, ``iters`` CP
+    iterations), the device busy time and the device time and launches of
+    ``banded_scatter`` and ``banded_gather``: ``{"wall_ms", "busy_ms",
+    "scatter_ms", "gather_ms", "scatter_launches", "gather_launches"}``."""
+    per, counts = {}, {}
+    for ev in prof.key_averages():
+        dt = getattr(ev, "self_device_time_total", 0.0)
+        if dt > 0:
+            per[ev.key], counts[ev.key] = dt, ev.count
+    out = {"wall_ms": t * 1e3, "busy_ms": sum(per.values()) / 1e3}
+    for kern in ("scatter", "gather"):
+        keys = [k for k in per if f"banded_{kern}" in k]
+        out[f"{kern}_ms"] = sum(per[k] for k in keys) / 1e3
+        out[f"{kern}_launches"] = sum(counts[k] for k in keys)
+    check(out["scatter_launches"] > 0 and out["gather_launches"] > 0,
+          f"[profile] cp-device-mesh: no banded transfer in the trace: "
+          f"{sorted(per)[:8]}")
+    print(f"[profile] cp-device-mesh float32 BandedGraphD1 (the path's run "
+          f"under torch.profiler, {iters} CP iterations): "
+          f"{out['wall_ms']:.1f} ms on the host clock, device busy "
+          f"{out['busy_ms']:.1f} ms (idle share "
+          f"{1 - out['busy_ms'] / out['wall_ms']:.3f}); banded_scatter "
+          f"{out['scatter_ms']:.2f} ms in {out['scatter_launches']} "
+          f"launches, banded_gather {out['gather_ms']:.2f} ms in "
+          f"{out['gather_launches']} ({CARD})", flush=True)
     return out
 
 
@@ -4360,18 +4665,21 @@ def phase_cp_duplex_device(device="cuda"):
                 steps=rec.steps)
 
 
-def phase_checkpoint(device="cuda"):
+def phase_checkpoint(f_ref, device="cuda"):
     """Main path: checkpoints on the card.  A float64 PFDR on the EEG
     stencil (``stencil_fused``) stopped at iteration 500, saved with
     ``utils.save_state``, loaded onto the card with ``utils.load_state``
     and resumed to 1000 equals the uninterrupted 1000 bit for bit.  The EEG
-    host-cut cut-pursuit's ``CPState`` after 3 CP iterations, saved and
-    loaded, resumes exactly as from the state in memory, and that resume
-    over the remaining CP iterations reaches the uninterrupted solve's
-    objective within 1e-4 relative (the state holds no reduced-solve
-    history, so the trajectories differ by rounding, as in the JAX
-    package).  ``utils.profile`` around one PFDR
-    call leaves a trace file."""
+    host-cut cut-pursuit's ``CPState`` after 3 CP iterations, in float64,
+    saved and loaded, resumes exactly as from the state in memory, and
+    that resume over the remaining CP iterations reaches the uninterrupted
+    solve's objective within 1e-4 relative (the state holds no
+    reduced-solve history, so the trajectories differ by rounding).  The
+    same in float32, resumed from the file, lands, as the uninterrupted
+    float32 solve, at most 1e-3 above the float64 host cut's ``f_ref`` (the
+    bench's rule for a float32 cut-pursuit; a float32 resume may part
+    from the uninterrupted trajectory at a knife-edge cut).
+    ``utils.profile`` around one PFDR call leaves a trace file."""
     import tempfile
     import torch
     from cp_pfdr_graph_d1_tpu_torch import (DenseOp, PFDROptions,
@@ -4412,35 +4720,63 @@ def phase_checkpoint(device="cuda"):
         check(same, "checkpoint: the resumed PFDR differs from the "
               "uninterrupted solve")
 
-        ge, _, _ = eeg_host_cut(device)
-        f32 = torch.float32
-        _, uninterrupted = lasso_cp(ge, a, y, f32, device, cut="host")
-        _, first = lasso_cp(ge, a, y, f32, device, cut="host", it_max=3)
+        # float64: the resume from the file equals the resume from memory
+        # and lands within 1e-4 of the uninterrupted solve
+        g64 = StencilGraphD1.create((V_SIDE, V_SIDE),
+                                    {(0, 1): LA_D1, (1, 0): LA_D1},
+                                    dtype=f64, device=device)
+        _, uninterrupted = lasso_cp(g64, a, y, f64, device, cut="host")
+        _, first = lasso_cp(g64, a, y, f64, device, cut="host", it_max=3)
         cp_path = os.path.join(tmp, "cp.npz")
         save_state(cp_path, first.state)
         state = load_state(cp_path)
         # the rest of the uninterrupted solve's CP iterations
         more = dict(cut="host", it_max=uninterrupted.it - first.it)
-        _, from_file = lasso_cp(ge, a, y, f32, device, state=state, **more)
-        _, from_memory = lasso_cp(ge, a, y, f32, device, state=first.state,
+        _, from_file = lasso_cp(g64, a, y, f64, device, state=state, **more)
+        _, from_memory = lasso_cp(g64, a, y, f64, device, state=first.state,
                                   **more)
-        f_full = cp_objective(uninterrupted, a, y, ge)
-        f_res = cp_objective(from_file, a, y, ge)
+        f_full = cp_objective(uninterrupted, a, y, g64)
+        f_res = cp_objective(from_file, a, y, g64)
         exact = (np.array_equal(from_file.cv, from_memory.cv)
                  and np.array_equal(from_file.rx, from_memory.rx))
-        print(f"[checkpoint] EEG host-cut cut-pursuit: 3 CP iterations, "
-              f"CPState through an .npz, then {from_file.it} more: "
-              f"{'equal to' if exact else 'differs from'} the resume from "
-              f"memory; objective {f_res:.9g} against the uninterrupted "
-              f"{f_full:.9g} ({uninterrupted.it} CP iterations; rel "
-              f"{(f_res - f_full) / abs(f_full):.2e}, tol 1e-4)", flush=True)
+        print(f"[checkpoint] EEG host-cut cut-pursuit, float64: 3 CP "
+              f"iterations, CPState through an .npz, then {from_file.it} "
+              f"more: {'equal to' if exact else 'differs from'} the resume "
+              f"from memory; objective {f_res:.12g} against the "
+              f"uninterrupted {f_full:.12g} ({uninterrupted.it} CP "
+              f"iterations; rel {(f_res - f_full) / abs(f_full):.2e}, tol "
+              f"1e-4)", flush=True)
         check(exact and all(np.array_equal(getattr(state, k),
                                            getattr(first.state, k))
                             for k in ("active", "cv", "rx")),
               "checkpoint: the CPState from the file resumes otherwise than "
               "the state in memory")
         check(abs(f_res - f_full) <= 1e-4 * abs(f_full), f"checkpoint: the "
-              f"resumed cut-pursuit's objective {f_res} vs {f_full}")
+              f"resumed float64 cut-pursuit's objective {f_res} vs {f_full}")
+
+        # float32, the bench's rule: at most 1e-3 above the float64 host
+        # cut (the resume's trajectory may part from the uninterrupted one
+        # at knife-edge cuts)
+        ge, _, _ = eeg_host_cut(device)
+        f32 = torch.float32
+        _, uninterrupted = lasso_cp(ge, a, y, f32, device, cut="host")
+        _, first = lasso_cp(ge, a, y, f32, device, cut="host", it_max=3)
+        save_state(cp_path, first.state)
+        more = dict(cut="host", it_max=uninterrupted.it - first.it)
+        _, from_file = lasso_cp(ge, a, y, f32, device,
+                                state=load_state(cp_path), **more)
+        f_full = cp_objective(uninterrupted, a, y, ge)
+        f_res = cp_objective(from_file, a, y, ge)
+        print(f"[checkpoint] EEG host-cut cut-pursuit, float32: 3 + "
+              f"{from_file.it} CP iterations through an .npz, objective "
+              f"{f_res:.9g}, uninterrupted {f_full:.9g} (rel "
+              f"{(f_res - f_full) / abs(f_full):.2e}); float64 host cut "
+              f"{f_ref:.9g} (rel {(f_res - f_ref) / abs(f_ref):.2e}, tol "
+              f"1e-3 above)", flush=True)
+        check(max(f_res, f_full) <= f_ref * (1 + 1e-3), f"checkpoint: the "
+              f"float32 cut-pursuit's objective {f_res} (uninterrupted "
+              f"{f_full}) more than 1e-3 above the float64 host cut's "
+              f"{f_ref}")
 
         trace_dir = os.path.join(tmp, "trace")
         with profile(trace_dir):
@@ -4515,42 +4851,49 @@ def reduced_solve_work(rv_cap, ne, n_rows, iters, itemsize=4):
     return nbytes, per_it * iters
 
 
+def timed(fn, *args):
+    """``fn(*args)``, with its host seconds printed as ``[time] <name>``:
+    what each phase adds to the script's run."""
+    t0 = time.monotonic()
+    out = fn(*args)
+    print(f"[time] {fn.__name__} {time.monotonic() - t0:.1f} s", flush=True)
+    return out
+
+
 def main():
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     t_main = time.monotonic()
     phase_env()
     import torch
-    phase_build()
-    st_err, st_rel, st_t = phase_stencil()
-    ss_err, ss_t = phase_solve_small()
-    mc_err, mc_t = phase_mincut()
-    cc_t = phase_components()
-    sf_err, sfm = phase_solve_fused()
+    start_extra_builds()  # beside the port's build
+    timed(phase_build)
+    st_err, st_rel, st_t = timed(phase_stencil)
+    ss_err, ss_t = timed(phase_solve_small)
+    mc_err, mc_t = timed(phase_mincut)
+    cc_t = timed(phase_components)
+    sf_err, sfm = timed(phase_solve_fused)
     sf_err[torch.float64] = max(sf_err[torch.float64],
-                                phase_solve_fused_large())
-    xover = crossover()
-    sx_err, sx_t = phase_stencil_simplex()
-    cps_cut, cps_comp = phase_cp_simplex_kernels()
-    bt = phase_banded_transfers()
-    bf_err, bf_t = phase_banded_fused()
-    cf_err, cf_t = phase_circulant_fused()
-    cs_err, cs_t = phase_circulant_simplex()
-    t_halo = time.monotonic()
-    hf_err, hf_abs, hf_t = phase_halo_fused()
-    print(f"[halo_fused] phase {time.monotonic() - t_halo:.1f} s",
-          flush=True)
+                                timed(phase_solve_fused_large))
+    xover = timed(crossover)
+    sx_err, sx_t = timed(phase_stencil_simplex)
+    cps_cut, cps_comp = timed(phase_cp_simplex_kernels)
+    bt = timed(phase_banded_transfers)
+    bf_err, bf_t = timed(phase_banded_fused)
+    cf_err, cf_t = timed(phase_circulant_fused)
+    cs_err, cs_t = timed(phase_circulant_simplex)
+    hf_err, hf_abs, hf_t = timed(phase_halo_fused)
     # the float64 solves the multi-label and mesh paths are held against,
     # outside the paths' counted windows
-    p64 = simplex_reference()
-    cp_ref = cp_simplex_reference()
-    x_mesh64 = mesh_reference()
-    p_mesh64 = mesh_simplex_solve(torch.float64, "cuda", 3000).p.cpu()
+    p64 = timed(simplex_reference)
+    cp_ref = timed(cp_simplex_reference)
+    x_mesh64 = timed(mesh_reference)
+    p_mesh64 = timed(mesh_simplex_solve, torch.float64, "cuda", 3000).p.cpu()
     # and the single-card solves the distributed paths are held against
-    halo_ref = halo_references()
-    p2_ref = p2_references()
+    halo_ref = timed(halo_references)
+    p2_ref = timed(p2_references)
     # and the float64 solves of slice 11's paths
-    mesh_cp64 = mesh_cp_reference()
-    route_ref = route_references()
+    mesh_cp64 = timed(mesh_cp_reference)
+    route_ref = timed(route_references)
 
     # the main paths: each with the counts set to 0 just before it and read
     # just after; each must have launched the kernels it runs
@@ -4582,7 +4925,8 @@ def main():
               ROUTE_AVOIDS),
              ("cp-duplex-device", phase_cp_duplex_device, (),
               ("components_fused",)),
-             ("checkpoint", phase_checkpoint, (), ("stencil_fused",)),
+             ("checkpoint", phase_checkpoint, lambda f: (f,),
+              ("stencil_fused",)),
              ("examples", phase_examples, (), ("solve_small",)))
     f_ref = None
     for name, fn, args, needs, *avoids in paths:
@@ -4592,6 +4936,8 @@ def main():
         out = fn(*(args(f_ref) if callable(args) else args))
         if name == "cp-host":
             f_ref = out[1]
+        elif name == "cp-device-mesh":
+            cp_mesh_share = out["banded"]["profile"]
         counts = read_counts()
         print(f"[{name}] kernel launches: {counts} "
               f"({time.monotonic() - t_path:.1f} s)", flush=True)
@@ -4603,11 +4949,11 @@ def main():
             launches[k] += v
     check(all(v > 0 for v in launches.values()),
           f"a kernel was launched on no main path: {launches}")
-    cp_rec = eeg_reduced_solves()
-    phase_cp_reduced_options(f_ref)
-    phase_profile()
-    profile_mesh()
-    halo_busy_p1()
+    cp_rec = timed(eeg_reduced_solves)
+    timed(phase_cp_reduced_options, f_ref)
+    timed(phase_profile)
+    timed(profile_mesh)
+    timed(halo_busy_p1)
 
     v_eeg, f2 = V_SIDE * V_SIDE, 2
     rv_big = max(ss_t["ms"])
@@ -4771,15 +5117,27 @@ def main():
                                 for gn in ("mesh", "star")),
             ms=mesh["ms"], plain_ms=mesh["plain_ms"],
             device_us=mesh["device_us"], library_ms=mesh["library_ms"],
+            library_device_us=mesh["library_device_us"],
             library=("index_select on the concatenated endpoints"
                      if kern == "gather" else
                      "two index_add_ calls into zeros (float atomics: not "
                      "deterministic)"),
+            launch_floor_us=bt["mesh"]["launch_floor_us"],
+            parent_turns=bt["mesh"]["turns"] and {
+                who: bt["mesh"]["turns"][who][kern]
+                for who in ("parent", "new")},
             host_us_per_call=bt["host"],
+            cp_device_mesh={k: v for k, v in cp_mesh_share.items()
+                            if kern in k or k in ("wall_ms", "busy_ms")},
             star=dict(bt["star"][kern], v=bt["star"]["v"],
-                      e=bt["star"]["e"], long_rows=bt["star"]["long_rows"]),
+                      e=bt["star"]["e"], long_rows=bt["star"]["long_rows"],
+                      launch_floor_us=bt["star"]["launch_floor_us"],
+                      parent_turns=bt["star"]["turns"] and {
+                          who: bt["star"]["turns"][who][kern]
+                          for who in ("parent", "new")}),
             shape=f"mesh V={v_eeg} E={eb} (banded order, padded), [V] "
-                  f"float32"))
+                  f"float32; one launch a call ({bt['mesh']['lanes']} "
+                  f"lanes a vertex in the scatter)"))
     rows += [
         dict(name="banded_fused", source="banded_fused.cu",
              replaces="banded_fused.py:165", max_abs_err=bf_err[f32],
@@ -5055,5 +5413,7 @@ if __name__ == "__main__":
         compare_timings()
     elif sys.argv[1:] == ["--reduced-options"]:
         reduced_options_only()
+    elif len(sys.argv) == 3 and sys.argv[1] == "--banded-parent":
+        banded_parent_only(sys.argv[2])
     else:
         main()

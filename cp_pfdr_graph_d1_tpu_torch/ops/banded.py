@@ -17,7 +17,9 @@ tensors on a CUDA device and run :func:`banded_gather_plain` and
 fallback.  Each launch adds one to ``banded_gather.launches`` or
 ``banded_scatter.launches``.  The scatter sums every vertex's incident
 slots in a fixed order (no float atomics), so it gives the same sum in
-every run.
+every run; it gives each vertex L lanes (:func:`launch_shape`, shared
+with :mod:`.banded_fused`) and each segment of a long row a block of the
+same launch (:func:`long_segments`).
 """
 from __future__ import annotations
 
@@ -31,9 +33,17 @@ import torch
 from .. import _build
 from ..graph import incidence_csr
 
-# rows of more incident slots than this take a block each in the scatter
-# kernel; must equal kLongRow in csrc/banded.cu
+# rows of more incident slots than this take blocks of their own in the
+# scatter kernel; must equal kLongRow in csrc/pfdr_common.cuh
 LONG_ROW = 64
+# threads of a vertex tile and most lanes a vertex; must equal kBandedBlock
+# and kMaxScatterLanes in csrc/banded.cu, kBandedFusedBlock and
+# kMaxVertexLanes in csrc/banded_fused.cu
+BLOCK = 256
+MAX_LANES = 32
+# slots of a long row that one block of the scatter sums: a longer row
+# takes several blocks, whose sums the last of them adds
+LONG_SEGMENT = 1024
 
 
 class BandedPlan(NamedTuple):
@@ -63,12 +73,60 @@ class EdgeIndex(NamedTuple):
 
 
 def edge_index(eu, ev, num_vertices: int) -> EdgeIndex:
-    eu32 = eu.to(torch.int32).contiguous()
-    ev32 = ev.to(torch.int32).contiguous()
+    # copies of their own: the gather reads eu and ev 16 bytes at a time,
+    # from allocations aligned to more than that
+    eu32 = eu.to(torch.int32, memory_format=torch.contiguous_format,
+                 copy=True)
+    ev32 = ev.to(torch.int32, memory_format=torch.contiguous_format,
+                 copy=True)
     offsets, slots = incidence_csr(eu32, ev32, num_vertices)
     deg = offsets[1:] - offsets[:-1]
     long_rows = torch.nonzero(deg > LONG_ROW).reshape(-1).to(torch.int32)
     return EdgeIndex(eu32, ev32, offsets, slots, long_rows)
+
+
+def launch_shape(offsets, long_rows):
+    """``(lanes, vertex tiles, long rows)`` of a launch of the scatter
+    or of :mod:`.banded_fused` on a graph whose incidence list has the
+    offsets ``offsets`` ([V + 1]) and the rows ``long_rows`` of more than
+    :data:`LONG_ROW` slots.
+
+    ``lanes`` is the smallest power of two at least the mean slot count of
+    the other rows (at most :data:`MAX_LANES`).  Tile ``b`` holds vertices
+    ``b * BLOCK // lanes ...``, thread ``i`` of it vertex
+    ``b * BLOCK // lanes + i // lanes`` as its lane ``i % lanes``, which
+    takes the row's slots ``beg + lane, beg + lane + lanes, ...``; a tile
+    skips the long rows, and the blocks past the tiles take them
+    (``banded_fused``: block ``tiles + r`` row ``long_rows[r]``; the
+    scatter: a block a segment and column, :func:`long_segments`).
+    """
+    deg = np.diff(np.asarray(offsets, np.int64))
+    short = deg[deg <= LONG_ROW]
+    mean = float(short.mean()) if short.size else 1.0
+    lanes = 1
+    while lanes < mean and lanes < MAX_LANES:
+        lanes *= 2
+    return lanes, -(-len(deg) // (BLOCK // lanes)), len(long_rows)
+
+
+def long_segments(offsets, long_rows, seg_len: int = LONG_SEGMENT):
+    """``(segs, long_seg)`` of the scatter's long-row blocks: each segment
+    of at most ``seg_len`` consecutive slots of a long row as int32
+    ``(vertex, first slot, end slot, long row)`` ([n_seg, 4], the rows'
+    segments in order), and each long row's first segment ([n_long + 1],
+    the last entry the segment count).  Block ``tiles + s * K + c`` sums
+    column ``c`` of segment ``s``."""
+    offsets = np.asarray(offsets, np.int64)
+    rows = np.asarray(long_rows, np.int64)
+    deg = offsets[rows + 1] - offsets[rows]
+    nseg = -(-deg // seg_len)
+    long_seg = np.concatenate([[0], np.cumsum(nseg)]).astype(np.int32)
+    r = np.repeat(np.arange(len(rows)), nseg)
+    beg = offsets[rows][r] + (np.arange(long_seg[-1]) - long_seg[r]) \
+        * seg_len
+    end = np.minimum(beg + seg_len, offsets[rows + 1][r])
+    segs = np.stack([rows[r], beg, end, r], axis=1).astype(np.int32)
+    return segs, long_seg
 
 
 def rcm_order(eu, ev, num_vertices: int):
@@ -152,11 +210,12 @@ def banded_scatter_plain(graph, vals_u, vals_v):
 
 class _Plan(ctypes.Structure):
     """``BandedPlan`` of ``csrc/banded.cu``."""
-    _fields_ = [("eu", ctypes.c_void_p), ("ev", ctypes.c_void_p),
-                ("offsets", ctypes.c_void_p), ("slots", ctypes.c_void_p),
-                ("long_rows", ctypes.c_void_p), ("ne", ctypes.c_int),
-                ("nv", ctypes.c_int), ("n_long", ctypes.c_int),
-                ("k", ctypes.c_int), ("device", ctypes.c_int)]
+    _fields_ = ([(n, ctypes.c_void_p) for n in
+                 ("eu", "ev", "offsets", "slots", "segs", "long_seg",
+                  "partials", "tickets")]
+                + [(n, ctypes.c_int) for n in
+                   ("ne", "nv", "n_long", "n_seg", "k", "lanes", "tiles",
+                    "device")])
 
 
 @functools.cache
@@ -177,6 +236,8 @@ def _lib():
     for name in ("cp_banded_long_row", "cp_banded_plan_size"):
         getattr(lib, name).restype = i
         getattr(lib, name).argtypes = []
+    lib.cp_banded_launch_shape.restype = None
+    lib.cp_banded_launch_shape.argtypes = [i, i, ptr]
     if lib.cp_banded_long_row() != LONG_ROW:
         raise RuntimeError("LONG_ROW disagrees with the CUDA source")
     if lib.cp_banded_plan_size() != ctypes.sizeof(_Plan):
@@ -200,8 +261,10 @@ def _check_float(name, a, like):
 def _make_plan(graph, kind, key, a, rows):
     """Checks a gather or scatter input ``a`` once for its (dtype, shape,
     device) and prepares the launch: ``(C function, plan address, output
-    shape, device index, the plan)``.  ``rows`` is the leading size ``a``
-    must have."""
+    shape, device index, the plan and its buffers)``.  ``rows`` is the
+    leading size ``a`` must have.  The scatter's plan holds its long rows'
+    segments, their partial sums and tickets, so its key names the stream
+    too: each stream gets plan buffers of its own."""
     _check_float(kind, a, a)
     if a.shape[0] != rows:
         raise ValueError(f"{kind} input has {a.shape[0]} rows; expected "
@@ -213,10 +276,29 @@ def _make_plan(graph, kind, key, a, rows):
                          f"{idx.eu.device}")
     lib = _lib()
     k = 1 if a.ndim == 1 else a.shape[1]
+    nv, n_long = graph.num_vertices, idx.long_rows.numel()
+    lanes = tiles = n_seg = 0
+    # the scatter's long-row segments, their sums and tickets
+    bufs, ptrs = (), [None] * 4
+    if kind == "scatter":
+        offsets = idx.offsets.cpu().numpy()
+        long_rows = idx.long_rows.cpu().numpy()
+        lanes, tiles, _ = launch_shape(offsets, long_rows)
+        shape = (ctypes.c_int * 3)()
+        lib.cp_banded_launch_shape(nv, lanes, shape)
+        if tuple(shape) != (BLOCK, MAX_LANES, tiles):
+            raise RuntimeError("launch_shape disagrees with csrc/banded.cu")
+        segs, long_seg = (torch.from_numpy(t).to(a.device) for t in
+                          long_segments(offsets, long_rows, LONG_SEGMENT))
+        partials = a.new_empty(max(len(segs) * k, 1))
+        tickets = torch.zeros(max(n_long * k, 1), dtype=torch.int32,
+                              device=a.device)
+        bufs = (segs, long_seg, partials, tickets)
+        ptrs = [b.data_ptr() for b in bufs]
+        n_seg = len(segs)
     plan = _Plan(idx.eu.data_ptr(), idx.ev.data_ptr(),
-                 idx.offsets.data_ptr(), idx.slots.data_ptr(),
-                 idx.long_rows.data_ptr(), graph.num_edges,
-                 graph.num_vertices, idx.long_rows.numel(), k,
+                 idx.offsets.data_ptr(), idx.slots.data_ptr(), *ptrs,
+                 graph.num_edges, nv, n_long, n_seg, k, lanes, tiles,
                  a.device.index)
     sfx = "f32" if a.dtype == torch.float32 else "f64"
     if kind == "gather":
@@ -224,7 +306,7 @@ def _make_plan(graph, kind, key, a, rows):
     else:
         out_shape = (graph.num_vertices,) + tuple(a.shape[1:])
     entry = (getattr(lib, f"cp_banded_{kind}_{sfx}"), ctypes.addressof(plan),
-             out_shape, a.device.index, plan)
+             out_shape, a.device.index, (plan, bufs))
     graph._banded_plans[key] = entry
     return entry
 
@@ -261,12 +343,15 @@ def banded_gather(graph, x):
 def banded_scatter(graph, vals_u, vals_v):
     """``out[v] = sum_{eu[e]==v} vals_u[e] + sum_{ev[e]==v} vals_v[e]`` for
     contiguous [E] or [E, K] edge values, each vertex's slots summed in a
-    fixed order.  Checked once per (graph, dtypes, shapes, devices), as
-    :func:`banded_gather`."""
+    fixed order.  Checked once per (graph, dtypes, shapes, devices,
+    stream), as :func:`banded_gather`; the plan's long-row partial sums
+    and tickets are the stream's own, so scatters on two streams may
+    overlap (two concurrent replays of one captured CUDA graph may not)."""
     if not vals_u.is_cuda:
         return banded_scatter_plain(graph, vals_u, vals_v)
+    stream = _raw_stream(vals_u.get_device())
     key = ("scatter", vals_u.dtype, vals_u.shape, vals_u.get_device(),
-           vals_v.dtype, vals_v.shape, vals_v.get_device())
+           vals_v.dtype, vals_v.shape, vals_v.get_device(), stream)
     entry = graph._banded_plans.get(key)
     if entry is None:
         _check_float("vals_v", vals_v, vals_u)
@@ -279,7 +364,7 @@ def banded_scatter(graph, vals_u, vals_v):
     fn, plan, out_shape, index, _ = entry
     out = vals_u.new_empty(out_shape)
     rc = fn(plan, vals_u.data_ptr(), vals_v.data_ptr(), out.data_ptr(),
-            _raw_stream(index))
+            stream)
     if rc != 0:
         raise RuntimeError(f"banded scatter launch failed (CUDA error {rc})")
     banded_scatter.launches += 1

@@ -5,10 +5,10 @@ Counterpart of ``cp_pfdr_graph_d1_tpu.ops.banded_fused``
 (``fused_banded_iteration``): forward step, endpoint gathers, d1 pair prox
 with relaxation, weighted edge -> vertex average, vertex prox and the
 evolution sums, in one launch: L lanes of a warp per vertex
-(:func:`launch_shape`), a block per vertex of more than
-:data:`.banded.LONG_ROW` incident slots (a hub; the container's padding
-edges make the endpoints of its last edge such), and the sums ended by the
-last block to finish.  The JAX kernel's VMEM admission
+(:func:`.banded.launch_shape`, which the scatter shares), a block per
+vertex of more than :data:`.banded.LONG_ROW` incident slots (a hub; the
+container's padding edges make the endpoints of its last edge such), and
+the sums ended by the last block to finish.  The JAX kernel's VMEM admission
 (``supports_fused_plan``) has no counterpart.
 
 :func:`fused_banded_iteration` launches the CUDA kernel for tensors on a
@@ -22,20 +22,16 @@ import ctypes
 import functools
 import operator
 
-import numpy as np
 import torch
 
 from . import banded
-from .banded import LONG_ROW, _raw_stream, banded_scatter_plain
+from .banded import (BLOCK, MAX_LANES, _raw_stream, banded_scatter_plain,
+                     launch_shape)
 from .prox import vertex_prox_plain
 
 _VKIND = {"none": 0, "l1": 1, "bounds": 2}
 _VERTEX = ("x", "grad", "ga", "th_l1")
 _EDGE = ("zu", "zv", "wu", "wv", "w_d1u", "w_d1v", "th_d1")
-# threads of a block and most lanes a vertex; must equal kBandedFusedBlock
-# and kMaxVertexLanes in csrc/banded_fused.cu
-BLOCK = 256
-MAX_LANES = 32
 # what a plan's key holds of each stage field
 _SIGNATURE = operator.attrgetter("dtype", "shape", "device")
 
@@ -71,27 +67,6 @@ def banded_fused_plain(graph, x, grad, ga, th_l1, zu, zv, wu, wv, w_d1u,
         lambda vu, vv: banded_scatter_plain(graph, vu, vv),
         x, grad, ga, th_l1, zu, zv, wu, wv, w_d1u, w_d1v, th_d1, rho=rho,
         vkind=vkind, positivity=positivity, lo=lo, hi=hi)
-
-
-def launch_shape(offsets, long_rows):
-    """``(lanes, vertex tiles, long-row blocks)`` of a launch on a graph
-    whose incidence list has the offsets ``offsets`` ([V + 1]) and the rows
-    ``long_rows`` of more than :data:`.banded.LONG_ROW` slots.
-
-    ``lanes`` is the smallest power of two at least the mean slot count of
-    the other rows (at most :data:`MAX_LANES`).  Tile ``b`` holds vertices
-    ``b * BLOCK // lanes ...``, thread ``i`` of it vertex
-    ``b * BLOCK // lanes + i // lanes`` as its lane ``i % lanes``, which
-    takes the row's slots ``beg + lane, beg + lane + lanes, ...``; a tile
-    skips the long rows, and block ``tiles + k`` takes ``long_rows[k]``.
-    """
-    deg = np.diff(np.asarray(offsets, np.int64))
-    short = deg[deg <= LONG_ROW]
-    mean = float(short.mean()) if short.size else 1.0
-    lanes = 1
-    while lanes < mean and lanes < MAX_LANES:
-        lanes *= 2
-    return lanes, -(-len(deg) // (BLOCK // lanes)), len(long_rows)
 
 
 class _Plan(ctypes.Structure):

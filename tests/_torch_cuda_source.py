@@ -27,13 +27,14 @@ def cuda_constant(src, name):
 
 def cuda_struct(src, name):
     """A ctypes Structure laid out as the C struct ``name`` of ``src``
-    (fields of type int, long long, double or a pointer; arrays sized by a
-    constant of the source)."""
+    (fields of type int, long long, double or a pointer, const or not;
+    arrays sized by a constant of the source)."""
     m = re.search(r"struct\s+%s\s*\{(.*?)\};" % re.escape(name), src, re.S)
     assert m, f"struct {name} not found in the CUDA source"
     body = re.sub(r"//[^\n]*", "", m.group(1))
     fields = []
-    for decl in filter(None, (d.strip() for d in body.split(";"))):
+    for decl in filter(None, (d.strip().removeprefix("const ")
+                              for d in body.split(";"))):
         kind = next(k for k in ("long long", "void", "int", "double")
                     if decl.startswith(k))
         rest = decl[len(kind):]

@@ -34,6 +34,8 @@ from cp_pfdr_graph_d1_tpu_torch.solvers.cut_pursuit_common import \
     make_reduced_container as t_reduced
 from cp_pfdr_graph_d1_tpu_torch.solvers.pfdr_quadratic import Precond
 
+from ._torch_cuda_source import (assert_struct_mirrors, cuda_constant,
+                                 cuda_source)
 from .conftest import make_grid_graph
 
 torch.set_num_threads(1)
@@ -362,3 +364,186 @@ def test_fused_launch_shape_covers_every_slot_once(name):
         slot_cover[offsets[vi]:offsets[vi + 1]] += 1
     assert (slot_cover == 1).all()
     assert len(set(long_rows.tolist())) == n_long
+
+
+# (graph, tile) of the launch-shape cases: the mesh and the star padded to
+# a multiple of 1024 edges, and the mesh padded to 4096, beyond its 1015
+# edges, so that its last edge's endpoints are hubs of the padding
+SHAPE_CASES = {"mesh": ("mesh", 1024), "star": ("star", 1024),
+               "padded": ("mesh", 4096)}
+
+
+def port_graph(name, tile):
+    """The port's container alone (the JAX one takes multiples of 1024
+    only)."""
+    eu, ev, la = GRAPHS[name]()
+    return T.BandedGraphD1.create(eu, ev, la, num_vertices=V,
+                                  dtype=torch.float64, tile=tile,
+                                  device="cpu")
+
+
+def scatter_cover(offsets, long_rows, k, lanes, tiles, seg_len):
+    """How often the scatter kernel, read as ``csrc/banded.cu`` maps its
+    grid, sums each (slot, column) and writes each (vertex, column): tile
+    threads give vertex ``b * BLOCK / lanes + i / lanes`` lanes ``i %
+    lanes`` that take the slots ``beg + lane, beg + lane + lanes, ...`` in
+    passes of ``kScatterCols`` columns (one at K = 1), lane 0 writing;
+    block ``tiles + s * k + c`` sums column ``c`` of segment ``s``
+    (:func:`banded.long_segments`: its vertex, slot range and row), thread
+    ``t`` a run of ``ceil(len / BLOCK)`` of its slots (``long_row_run``),
+    and the row's only segment, or the last of its segments to finish,
+    writes.  Returns ``(summed [2E,
+    k], written [V, k], blocks per segment and column)``."""
+    src = cuda_source("banded.cu")
+    block = cuda_constant(src, "kBandedBlock")
+    cols = 1 if k == 1 else cuda_constant(src, "kScatterCols")
+    nv = len(offsets) - 1
+    deg = np.diff(offsets)
+    summed = np.zeros((offsets[-1], k), np.int64)
+    written = np.zeros((nv, k), np.int64)
+    t = np.arange(tiles * block)
+    v = (t // block) * (block // lanes) + (t % block) // lanes
+    j = (t % block) % lanes
+    for c0 in range(0, k, cols):
+        cs = slice(c0, min(c0 + cols, k))
+        for vi, ji in zip(v, j):
+            if vi < nv and deg[vi] <= banded.LONG_ROW:
+                summed[offsets[vi] + ji:offsets[vi + 1]:lanes, cs] += 1
+                written[vi, cs] += ji == 0
+    segs, long_seg = banded.long_segments(offsets, long_rows, seg_len)
+    per_seg = np.zeros((len(segs), k), np.int64)
+    tickets = np.zeros((len(long_rows), k), np.int64)
+    for b in range(len(segs) * k):
+        sg, c = divmod(b, k)
+        vi, beg, end, r = segs[sg]
+        assert vi == long_rows[r] and end - beg <= seg_len
+        nseg = long_seg[r + 1] - long_seg[r]
+        run = -(-(end - beg) // block)
+        for th in range(block):
+            lo = beg + th * run
+            summed[lo:min(lo + run, end), c] += 1
+        per_seg[sg, c] += 1
+        tickets[r, c] += 1
+        written[vi, c] += nseg == 1 or tickets[r, c] == nseg
+    return summed, written, per_seg
+
+
+@pytest.mark.parametrize("k", [1, 4, 12])
+@pytest.mark.parametrize("case", sorted(SHAPE_CASES))
+def test_scatter_launch_shape_covers_every_slot_once(case, k):
+    """The scatter's launch (:func:`banded.launch_shape`'s lanes and tiles,
+    :func:`banded.long_segments`' blocks) sums every (slot, column) exactly
+    once, writes every (vertex, column) exactly once and gives each long
+    row's segment exactly one block per column, on graphs with and without
+    hubs of the padding, at the package's segment length and at one that
+    cuts every long row into several segments; K = 12 takes two passes of
+    columns."""
+    name, tile = SHAPE_CASES[case]
+    tg = port_graph(name, tile)
+    idx = tg.edge_index()
+    offsets = idx.offsets.numpy().astype(np.int64)
+    long_rows = idx.long_rows.numpy()
+    lanes, tiles, n_long = banded.launch_shape(offsets, long_rows)
+    deg = np.diff(offsets)
+    assert n_long == int((deg > banded.LONG_ROW).sum())
+    if case != "mesh":
+        assert n_long > 0
+    assert tiles * (banded.BLOCK // lanes) >= V > (tiles - 1) * (
+        banded.BLOCK // lanes)
+    for seg_len in (banded.LONG_SEGMENT, 100):
+        summed, written, per_seg = scatter_cover(offsets, long_rows, k,
+                                                 lanes, tiles, seg_len)
+        assert (summed == 1).all()
+        assert (written == 1).all()
+        assert (per_seg == 1).all()
+        segs, long_seg = banded.long_segments(offsets, long_rows, seg_len)
+        assert long_seg[-1] == len(segs) >= n_long
+        if n_long:
+            assert (np.diff(long_seg) == -(-deg[long_rows] // seg_len)).all()
+    assert len(set(long_rows.tolist())) == n_long
+
+
+def gather_cover(ne, k, itemsize):
+    """How often the gather kernel, read as ``csrc/banded.cu`` maps its
+    grid, writes each (row, edge, column) of its [2, E, K] output, and the
+    edges whose indices a thread reads 16 bytes at a time: at K = 1 thread
+    ``t`` takes edges ``4 t ... 4 t + 3`` (``kGatherEdges``), with one
+    vector load of eu and of ev when all four exist and one by one at the
+    ragged end; at K > 1 thread ``e`` takes edge ``e``, its columns in
+    vectors of the widest of 16 or 8 bytes that divides the row (the
+    pointers aligned)."""
+    src = cuda_source("banded.cu")
+    block = cuda_constant(src, "kGatherBlock")
+    edges = cuda_constant(src, "kGatherEdges") if k == 1 else 1
+    threads = -(-ne // edges)
+    blocks = -(-threads // block)
+    written = np.zeros((2, ne, k), np.int64)
+    vector_read = np.zeros(ne, np.int64)
+    width = next((w for w in (16 // itemsize, 8 // itemsize)
+                  if w > 1 and k % w == 0), 1)
+    for t in range(blocks * block):
+        e0 = t * edges
+        if e0 >= ne:
+            continue
+        if k == 1:
+            if e0 + edges <= ne:
+                vector_read[e0:e0 + edges] += 1
+            written[:, e0:min(e0 + edges, ne), 0] += 1
+        else:
+            for c in range(0, k, width):
+                written[:, e0, c:c + width] += 1
+    return written, vector_read
+
+
+@pytest.mark.parametrize("itemsize", [4, 8])
+@pytest.mark.parametrize("k", [1, 4])
+@pytest.mark.parametrize("name,tile", [("mesh", 1), ("star", 1),
+                                       ("mesh", 1024)])
+def test_gather_launch_covers_every_edge_once(name, tile, k, itemsize):
+    """The gather's grid writes every (edge, column) of both rows exactly
+    once, at a ragged end (tile 1: 1015 and 998 edges, not multiples of 4)
+    and without one; its 16-byte index loads stay inside the edges and
+    cover all but the ragged end."""
+    tg = port_graph(name, tile)
+    ne = tg.num_edges
+    written, vector_read = gather_cover(ne, k, itemsize)
+    assert (written == 1).all()
+    if k == 1:
+        edges = cuda_constant(cuda_source("banded.cu"), "kGatherEdges")
+        assert vector_read.max() == 1
+        assert vector_read.sum() == ne - ne % edges
+        if tile == 1:
+            assert ne % edges != 0
+
+
+@pytest.mark.parametrize("case", sorted(SHAPE_CASES))
+def test_fused_launch_shape_is_the_scatter_helper(case):
+    """``banded_fused`` and the scatter share one launch-shape helper and
+    its constants, which both CUDA sources hold."""
+    assert banded_fused.launch_shape is banded.launch_shape
+    assert (banded_fused.BLOCK, banded_fused.MAX_LANES) == (
+        banded.BLOCK, banded.MAX_LANES)
+    src, fsrc = cuda_source("banded.cu"), cuda_source("banded_fused.cu")
+    assert cuda_constant(src, "kBandedBlock") == banded.BLOCK
+    assert cuda_constant(fsrc, "kBandedFusedBlock") == banded.BLOCK
+    assert cuda_constant(src, "kMaxScatterLanes") == banded.MAX_LANES
+    assert cuda_constant(fsrc, "kMaxVertexLanes") == banded.MAX_LANES
+    name, tile = SHAPE_CASES[case]
+    tg = port_graph(name, tile)
+    idx = tg.edge_index()
+    offsets = idx.offsets.numpy()
+    assert banded_fused.launch_shape(offsets, idx.long_rows) == \
+        banded.launch_shape(offsets, idx.long_rows)
+
+
+@pytest.mark.parametrize("source,struct,mirror", [
+    ("banded.cu", "BandedPlan", banded._Plan),
+    ("banded_fused.cu", "BandedFusedPlan", banded_fused._Plan)],
+    ids=["banded", "banded_fused"])
+def test_plans_mirror_the_cuda_source(source, struct, mirror):
+    """The ctypes plans have the C structs' fields, offsets and sizes, and
+    LONG_ROW is the CUDA source's kLongRow (on the card ``_lib()`` checks
+    the sizes against the compiled library too)."""
+    src = cuda_source(source)
+    assert_struct_mirrors(src, struct, mirror)
+    assert cuda_constant(src, "kLongRow") == banded.LONG_ROW
