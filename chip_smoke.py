@@ -18,7 +18,8 @@ It imports nothing of JAX.  Phases, one or more lines each:
    problem (its first steepest cut, about 2.6k components, and a 128-block
    partition), for the dense, Gram and diagonal operators, on the
    thread-block cluster the wrapper picks and on forced ones
-   (``SMALL_FORCED``: one block, 2, 4 and 8 CTAs);
+   (``SMALL_FORCED``: one block, 2, 4 and 8 CTAs); then ``reduced_setup``
+   against its plain version (``phase_reduced_setup``);
 5. ``mincut_fused`` against its plain version at 140 x 140, 512 x 512
    and 724 x 724 (10 % of the edges masked, standard-normal costs),
    float64 and float32, on the schedule the kernel chooses and, in
@@ -566,6 +567,272 @@ def phase_solve_small(device="cuda"):
     return errs, times
 
 
+# the reduced-solve set-up's cases: the operator routes of the host cut
+# ("pre_at": the premultiplied dense operator), on the grid problem cut into
+# strips of consecutive vertices; the cell's rv_cap 128 and 4096
+SETUP_KINDS = ("dense", "pre_at", "diag")
+SETUP_RVS = (100, 2200)
+# rows of the power-iteration matrix timed for the kernel's cap, by dtype
+SETUP_SWEEP = {"float32": (128, 256, 512, 1024, 2048),
+               "float64": (128, 256, 512, 1024)}
+# sides of the square grids of the size sweep (each vertex its own
+# component): 4096 to 262,144 reduced vertices, as the 524k denoising's
+# device loop contracts to tens of thousands; the dense operator (91 rows)
+# up to 65,536
+SETUP_SIZE_SIDES = (64, 128, 181, 256, 512)
+SETUP_SIZE_DENSE_MAX = 65_536
+
+
+def setup_case(kind, rv, dtype, device="cuda"):
+    """One reduced problem of the grid problem cut into ``rv`` strips of
+    consecutive vertices, as the host cut's kernel route hands it to the
+    set-up (the metric pending): ``(r_op, mat, ry, lipsch, rgraph,
+    r_la_l1, x0)``."""
+    import torch
+    from cp_pfdr_graph_d1_tpu_torch import GraphD1
+    from cp_pfdr_graph_d1_tpu_torch.solvers import cut_pursuit as cp
+    from cp_pfdr_graph_d1_tpu_torch.solvers.cut_pursuit_common import (
+        bucket, build_reduced_graph, pad_reduced_graph)
+    a, y = build_grid_problem()
+    v = V_SIDE * V_SIDE
+    idx = np.arange(v).reshape(V_SIDE, V_SIDE)
+    eu = np.concatenate([idx[:, :-1].ravel(), idx[:-1, :].ravel()])
+    ev = np.concatenate([idx[:, 1:].ravel(), idx[1:, :].ravel()])
+    la = np.full(len(eu), LA_D1)
+    cv = (np.arange(v) * rv // v).astype(np.int32)
+    rg = build_reduced_graph(cv, rv, eu, ev, la, cv[eu] != cv[ev], 1e-16)
+    rv_cap = max(bucket(rv), 128)
+    reu, rev, rla = pad_reduced_graph(rg, rv_cap,
+                                      max(bucket(len(rg.eu)), 128))
+    g = GraphD1.create(reu, rev, rla, num_vertices=rv_cap, dtype=dtype,
+                       device=device)
+    t = lambda z: torch.as_tensor(z, dtype=dtype, device=device)  # noqa
+    if kind == "diag":
+        op_kind, op_arr, obs = "diag", t((a * a).sum(axis=0)), t(a.T @ y)
+    else:
+        op_kind, op_arr, obs = "dense", t(a), t(y)
+    r_op, mat, ry, lipsch = cp._reduce_operator(
+        op_kind, op_arr, obs, torch.as_tensor(cv, device=device), rv_cap,
+        kind == "pre_at")
+    r_la_l1 = np.zeros(rv_cap)
+    np.add.at(r_la_l1, cv, LA_L1)
+    x0 = t(np.r_[np.full(rv, 0.01), np.zeros(rv_cap - rv)])
+    return r_op, mat, ry, lipsch, g, t(r_la_l1), x0
+
+
+def size_case(kind, side, device="cuda"):
+    """A float32 reduced problem whose reduced graph is a ``side`` x
+    ``side`` grid (rv_cap the next power of two, the rest isolated), as the
+    device loop hands it to the set-up: the diagonal operator of a
+    denoising (no power iteration, no l1), or the EEG problem's 91-row
+    dense operator (the metric pending on its 91 x 91 Gram, l1 weights):
+    ``(r_op, mat, ry, lipsch, rgraph, r_la_l1, x0)``."""
+    import torch
+    from cp_pfdr_graph_d1_tpu_torch import DenseOp, DiagOp, GraphD1
+    from cp_pfdr_graph_d1_tpu_torch.solvers import cut_pursuit as cp
+    from cp_pfdr_graph_d1_tpu_torch.solvers.cut_pursuit_common import bucket
+    r = np.random.default_rng(side)
+    rv = side * side
+    rv_cap = bucket(rv)
+    idx = np.arange(rv).reshape(side, side)
+    eu = np.concatenate([idx[:, :-1].ravel(), idx[:-1, :].ravel()])
+    ev = np.concatenate([idx[:, 1:].ravel(), idx[1:, :].ravel()])
+    g = GraphD1.create(eu, ev, 0.35 * r.uniform(0.5, 2.0, len(eu)),
+                       num_vertices=rv_cap, dtype=torch.float32,
+                       device=device)
+    def t(z):
+        return torch.as_tensor(z, dtype=torch.float32, device=device)
+    x0 = t(r.uniform(0, 1, rv_cap))
+    if kind == "diag":
+        d = t(r.integers(1, 30, rv_cap).astype(np.float64))
+        return DiagOp(d), d, t(r.standard_normal(rv_cap)), d, g, None, x0
+    ra = t(r.standard_normal((N_OBS, rv_cap)))
+    mat, ry, lipsch = cp.reduced_dense(ra, t(r.standard_normal(N_OBS)),
+                                       rv_cap, False)
+    return DenseOp(mat), mat, ry, lipsch, g, t(np.full(rv_cap, LA_L1)), x0
+
+
+def traced_call(fn):
+    """``fn()`` as one traced solve: ``(its result, its counters)``."""
+    from torch.profiler import ProfilerActivity, profile
+    from cp_pfdr_graph_d1_tpu_torch.utils import monitor
+    run = monitor.solve_entry("smoke.setup")(fn)
+    monitor.trace_records()
+    with profile(activities=[ProfilerActivity.CPU]):
+        out = run()
+    return out, monitor.trace_records()[-1]["counters"]
+
+
+def synced_us(fn, n=50):
+    """Microseconds per call of ``fn`` with the card synchronised after
+    each call (what the host waits for), after one call."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter_ns()
+    for _ in range(n):
+        fn()
+        torch.cuda.synchronize()
+    return (time.perf_counter_ns() - t0) / n / 1e3
+
+
+def phase_reduced_setup(device="cuda"):
+    """``reduced_setup`` against its plain version on the grid problem's
+    strips (``SETUP_KINDS`` x ``SETUP_RVS``), float64 (1e-12 relative on
+    the metric and every output, equal power steps) and float32 (1e-5),
+    two launches bit-equal; then, in float32, per call: the kernel route's
+    device microseconds, its host microseconds (no synchronise) and its
+    microseconds with a synchronise, against the plain chain's (its power
+    iteration reads the card every step, then the preconditioning's
+    launches); then the cap's sweep: the power iteration in the kernel
+    against the power iteration in PyTorch before the launch, on the
+    premultiplied operator of ``SETUP_SWEEP`` rows
+    (``reduced_setup.FUSED_POWER_MAX_DIM`` is set from it); then the size
+    sweep (``size_case``): the kernel against
+    the plain chain, each with a synchronise, up to 262,144 reduced
+    vertices: the kernel's one block against the plain version's launches
+    over the whole card."""
+    import torch
+    from cp_pfdr_graph_d1_tpu_torch.ops import reduced_setup as rs
+    errs = {torch.float64: 0.0, torch.float32: 0.0}
+    times = {}
+    for dtype in (torch.float64, torch.float32):
+        tol = 1e-12 if dtype == torch.float64 else 1e-5
+        for kind in SETUP_KINDS:
+            for rv in SETUP_RVS:
+                r_op, mat, ry, lipsch, g, l1, x0 = setup_case(kind, rv, dtype,
+                                                              device)
+
+                def kern():
+                    return rs.reduced_setup(r_op, mat, ry,
+                                            rs.settle_metric(lipsch), g, l1,
+                                            x0, rho=1.5)
+
+                def plain():
+                    return rs.reduced_setup_plain(r_op, ry, lipsch, g, l1,
+                                                  x0, rho=1.5)
+
+                got, ck = traced_call(kern)
+                want, cp_ = traced_call(plain)
+                again = kern()
+                err = 0.0
+                for name, a, b, c in zip(rs.SetupOut._fields, got, want,
+                                         again):
+                    top = float(b.double().abs().max())
+                    e = max_err(a, b) / (top if top else 1.0)
+                    check(e <= tol, f"reduced_setup {kind} rv={rv} {dtype} "
+                          f"{name}: relative err {e:.3g} > {tol}")
+                    check(torch.equal(a, c), f"reduced_setup {kind} rv={rv} "
+                          f"{dtype} {name}: two launches differ")
+                    err = max(err, e)
+                errs[dtype] = max(errs[dtype], err)
+                steps = ck.get("lipschitz.steps", 0)
+                if dtype == torch.float64:
+                    check(steps == cp_.get("lipschitz.steps", 0),
+                          f"reduced_setup {kind} rv={rv}: {steps} power "
+                          f"steps, plain {cp_.get('lipschitz.steps', 0)}")
+                check(ck.get("reduced.setup_fused") == 1,
+                      f"reduced_setup {kind} rv={rv}: no launch {ck}")
+                pending = isinstance(rs.settle_metric(lipsch),
+                                     rs.PendingMetric)
+                m_rows = (lipsch.mat.shape[0]
+                          if isinstance(lipsch, rs.PendingMetric) else 0)
+                line = (f"[reduced_setup] {str(dtype)[6:]} {kind:6s} rv={rv}"
+                        f" rv_cap={x0.shape[0]} e={g.num_edges} power "
+                        f"{'in the kernel' if pending else 'in PyTorch'} "
+                        f"(M {m_rows} rows) "
+                        f"steps={steps} max rel |kernel-plain| = {err:.3e} "
+                        f"(tol {tol:g}); bit-equal twice")
+                if dtype == torch.float32:
+                    t = dict(
+                        device_us=device_profile(kern, 20)[0],
+                        host_us=host_us(kern, 200),
+                        synced_us=synced_us(kern),
+                        plain_device_us=device_profile(plain, 5)[0],
+                        plain_synced_us=synced_us(plain, 10),
+                        rv_cap=x0.shape[0], e=g.num_edges, steps=steps)
+                    times[(kind, rv)] = t
+                    line += (f"; kernel route {t['device_us']:.2f} us device,"
+                             f" {t['host_us']:.2f} us host, "
+                             f"{t['synced_us']:.2f} us synchronised; plain "
+                             f"chain {t['plain_device_us']:.2f} us device, "
+                             f"{t['plain_synced_us']:.2f} us synchronised")
+                print(line, flush=True)
+    cap_sweep = {}
+    cap = rs.FUSED_POWER_MAX_DIM
+    try:
+        for dname, dims in SETUP_SWEEP.items():
+            dtype = getattr(torch, dname)
+            for p in dims:
+                r_op, mat, ry, lipsch, g, l1, x0 = setup_case("pre_at", p,
+                                                              dtype, device)
+                row = {}
+                for where, c in (("kernel", 1 << 30), ("pytorch", 0)):
+                    rs.FUSED_POWER_MAX_DIM = c
+                    row[where] = synced_us(lambda: rs.reduced_setup(
+                        r_op, mat, ry, lipsch, g, l1, x0, rho=1.5), 10)
+                rs.FUSED_POWER_MAX_DIM = cap
+                cap_sweep[(dname, p)] = row
+                print(f"[reduced_setup] cap sweep {dname} M of {p} rows: "
+                      f"power iteration in the kernel {row['kernel']:.1f} us,"
+                      f" in PyTorch before the launch {row['pytorch']:.1f} us"
+                      f" (a set-up, synchronised)", flush=True)
+    finally:
+        rs.FUSED_POWER_MAX_DIM = cap
+    sweep = {}
+    for kind in ("diag", "dense"):
+        for side in SETUP_SIZE_SIDES:
+            r_op, mat, ry, lipsch, g, l1, x0 = size_case(kind, side, device)
+            if kind == "dense" and x0.shape[0] > SETUP_SIZE_DENSE_MAX:
+                continue
+            kern = lambda: rs._fused(r_op, mat, ry, lipsch, g, l1, x0,  # noqa
+                                     1.5)
+            plain = lambda: rs.reduced_setup_plain(  # noqa
+                r_op, ry, lipsch, g, l1, x0, rho=1.5)
+            got, want = kern(), plain()
+            err = max(max_err(a, b) / max(float(b.abs().max()), 1e-30)
+                      for a, b in zip(got, want))
+            check(err <= 1e-5, f"reduced_setup size sweep {kind} side "
+                  f"{side}: relative err {err:.3g}")
+            row = dict(rv_cap=x0.shape[0], e=g.num_edges,
+                       kernel_us=synced_us(kern, 10),
+                       plain_us=synced_us(plain, 10))
+            sweep[(kind, x0.shape[0])] = row
+            print(f"[reduced_setup] size sweep {kind:5s} rv_cap="
+                  f"{row['rv_cap']} e={row['e']}: kernel "
+                  f"{row['kernel_us']:.1f} us, plain chain "
+                  f"{row['plain_us']:.1f} us (a set-up, synchronised; max "
+                  f"rel |kernel-plain| {err:.2e}; {CARD})", flush=True)
+    return errs, times, cap_sweep, sweep
+
+
+def reduced_setup_only():
+    """``python3 chip_smoke.py --reduced-setup``: the set-up kernel's phase
+    alone, then the EEG host cut end to end (min of two warm runs, as
+    ``[cp]``) with the set-up's launches counted."""
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    phase_env()
+    phase_build()
+    from cp_pfdr_graph_d1_tpu_torch.ops import reduced_setup as rs
+    from cp_pfdr_graph_d1_tpu_torch.ops import solve_small as ss
+    rs_out = phase_reduced_setup()
+    g, a, y = eeg_host_cut()
+    before = rs.reduced_setup.launches, ss.fused_pfdr_solve_small.launches
+    t_best, t_warm, out, _ = eeg_host_cut_runs(g, a, y)
+    grew = (rs.reduced_setup.launches - before[0],
+            ss.fused_pfdr_solve_small.launches - before[1])
+    check(grew[0] == grew[1] > 0, f"set-up launches {grew[0]}, solve_small "
+          f"launches {grew[1]}")
+    print(f"[reduced_setup] EEG host cut float32: min of two warm runs "
+          f"{t_best * 1e3:.1f} ms (warm-up {t_warm * 1e3:.1f} ms), {out.it} "
+          f"CP iterations, {len(out.rX)} components; set-up launches "
+          f"+{grew[0]} = solve_small launches ({CARD})", flush=True)
+    entry = kernel_entry(setup_row(*rs_out),
+                         setup_work(rs_out[1][("dense", SETUP_RVS[0])]),
+                         grew[0])
+    print(json.dumps({"kernels": [entry]}), flush=True)
+
+
 def objective(x, a, y, eu, ev, la):
     x = np.asarray(x, np.float64)
     r = a.astype(np.float64) @ x - y.astype(np.float64)
@@ -799,11 +1066,12 @@ def counters():
                                                 circulant_fused_simplex,
                                                 components_fused,
                                                 halo_fused, mincut_fused,
-                                                solve_fused, solve_small,
-                                                stencil_fused,
+                                                reduced_setup, solve_fused,
+                                                solve_small, stencil_fused,
                                                 stencil_fused_simplex)
     return {"stencil_fused": stencil_fused.fused_stencil_iteration,
             "solve_small": solve_small.fused_pfdr_solve_small,
+            "reduced_setup": reduced_setup.reduced_setup,
             "mincut_fused": mincut_fused.fused_pdhg_min_cut,
             "components_fused": components_fused.fused_components,
             "solve_fused": solve_fused.fused_pfdr_solve,
@@ -4840,6 +5108,39 @@ def bound(nbytes, flops):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def setup_row(errs, times, cap_sweep, sweep):
+    """The kernel report's row of ``reduced_setup`` from
+    ``phase_reduced_setup``'s results."""
+    import torch
+    return dict(name="reduced_setup", source="reduced_setup.cu",
+                replaces=None, max_abs_err=errs[torch.float32],
+                max_abs_err_f64=errs[torch.float64],
+                cases={f"{kind} rv={rv}": t
+                       for (kind, rv), t in times.items()},
+                cap_sweep_us={f"{d} M={p}": row
+                              for (d, p), row in cap_sweep.items()},
+                size_sweep_us={f"{kind} rv_cap={rc}": row
+                               for (kind, rc), row in sweep.items()},
+                shape=f"dense, rv={SETUP_RVS[0]} rv_cap=128, N={N_OBS}: the "
+                      f"power iteration of the 91-row Gram and the "
+                      f"preconditioning in one launch (errors relative)")
+
+
+def kernel_entry(row, work, launches):
+    """One entry of the JSON kernel report: ``row`` with its bound from
+    ``work`` (bytes, operations) and its main-path ``launches``."""
+    b_ms, b_by = bound(*work)
+    replaced = row.pop("replaces")
+    return dict(
+        name=row["name"], route="cuda",
+        source="cp_pfdr_graph_d1_tpu_torch/csrc/" + row.pop("source"),
+        replaces=("none (port-only)" if replaced is None else
+                  "cp_pfdr_graph_d1_tpu/ops/" + replaced),
+        launches=launches, bound_ms=b_ms, bound_by=b_by,
+        library_ms=row.pop("library_ms", None),
+        **{k: v for k, v in row.items() if k != "name"})
+
+
 def reduced_solve_work(rv_cap, ne, n_rows, iters, itemsize=4):
     """Bytes (inputs read once, outputs written once) and operations of a
     whole reduced PFDR solve: per iteration the dense gradient's 4 N rv_cap
@@ -4852,6 +5153,22 @@ def reduced_solve_work(rv_cap, ne, n_rows, iters, itemsize=4):
     per_it = (4 * n_rows * rv_cap if n_rows else rv_cap) + 24 * ne \
         + 10 * rv_cap
     return nbytes, per_it * iters
+
+
+def setup_work(t, itemsize=4, n_rows=N_OBS, restarts=10):
+    """Bytes (inputs read once, outputs written once) and operations of one
+    reduced set-up of ``phase_reduced_setup``'s dense case ``t``: the
+    operator, the metric's p x p matrix (p = N) and its start, the vertex
+    and edge rows, the int64 endpoints and the incidence lists; per power
+    step 2 restarts p^2 for the product and 3 restarts p for the norms and
+    the division, then about 2 N per vertex and 30 per edge."""
+    rv_cap, ne, p = t["rv_cap"], t["e"], n_rows
+    nbytes = (itemsize * (n_rows * rv_cap + p * p + restarts * p
+                          + 8 * rv_cap + 8 * ne)
+              + 8 * 2 * ne + 4 * (rv_cap + 1 + 2 * ne))
+    ops = (t["steps"] * restarts * (2 * p * p + 3 * p)
+           + 2 * n_rows * rv_cap + 20 * rv_cap + 30 * ne)
+    return nbytes, ops
 
 
 def timed(fn, *args):
@@ -4872,6 +5189,7 @@ def main():
     timed(phase_build)
     st_err, st_rel, st_t = timed(phase_stencil)
     ss_err, ss_t = timed(phase_solve_small)
+    rs_out = timed(phase_reduced_setup)
     mc_err, mc_t = timed(phase_mincut)
     cc_t = timed(phase_components)
     sf_err, sfm = timed(phase_solve_fused)
@@ -4902,7 +5220,7 @@ def main():
     # just after; each must have launched the kernels it runs
     launches = dict.fromkeys(counters(), 0)
     paths = (("pfdr", phase_pfdr, (), ("stencil_fused",)),
-             ("cp-host", phase_cp, (), ("solve_small",)),
+             ("cp-host", phase_cp, (), ("solve_small", "reduced_setup")),
              ("cp-chain", phase_cp_chain, lambda f: (f,),
               ("mincut_fused", "components_fused", "stencil_fused",
                "solve_small")),
@@ -4968,6 +5286,7 @@ def main():
         "stencil_fused": (4 * (5 * v_eeg + 9 * f2 * v_eeg + 2),
                           22 * f2 * v_eeg + 10 * v_eeg),
         "solve_small": reduced_solve_work(rv_cap, ne, n_rows, 300),
+        "reduced_setup": setup_work(rs_out[1][("dense", SETUP_RVS[0])]),
         "mincut_fused": (4 * (4 * v5 + 4 * f2 * v5),
                          mc["it"] * (10 * f2 * v5 + 6 * v5)
                          + mc["it"] // 250 * (15 * (2 * v5 + 3 * f2 * v5)
@@ -5048,6 +5367,7 @@ def main():
                                                 for c, t in row.items()}
                         for (kind, rc), row in xover.items()},
              shape=f"dense, rv={rv_big} rv_cap={rv_cap}, 300 iterations"),
+        setup_row(*rs_out),
         dict(name="mincut_fused", source="mincut_fused.cu",
              replaces="mincut_fused.py:121",
              max_abs_err=mc_err[(SIDE_524K, torch.float32)],
@@ -5193,16 +5513,8 @@ def main():
         shape=f"{HALO_SIDE // 4}x{HALO_SIDE} row block F={f_h} hd=1 (P=4 "
               f"of {HALO_SIDE}x{HALO_SIDE}), one halo PFDR iteration (5 "
               f"launches, exchanges replayed)"))
-    kernels = []
-    for row in rows:
-        b_ms, b_by = bound(*work[row["name"]])
-        kernels.append(dict(
-            name=row["name"], route="cuda",
-            source="cp_pfdr_graph_d1_tpu_torch/csrc/" + row.pop("source"),
-            replaces="cp_pfdr_graph_d1_tpu/ops/" + row.pop("replaces"),
-            launches=launches[row["name"]], bound_ms=b_ms, bound_by=b_by,
-            library_ms=row.pop("library_ms", None),
-            **{k: v for k, v in row.items() if k != "name"}))
+    kernels = [kernel_entry(row, work[row["name"]], launches[row["name"]])
+               for row in rows]
     print(f"[total] {time.monotonic() - t_main:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
@@ -5416,6 +5728,8 @@ if __name__ == "__main__":
         compare_timings()
     elif sys.argv[1:] == ["--reduced-options"]:
         reduced_options_only()
+    elif sys.argv[1:] == ["--reduced-setup"]:
+        reduced_setup_only()
     elif len(sys.argv) == 3 and sys.argv[1] == "--banded-parent":
         banded_parent_only(sys.argv[2])
     else:

@@ -31,15 +31,25 @@ from .utils.monitor import to_device
 def incidence_csr(eu, ev, num_vertices: int):
     """Per-vertex incidence list of the endpoint slots (slot ``s < E`` is
     edge ``s``'s u-end, ``E + s`` its v-end), sorted by slot within each
-    vertex: ``(offsets int32 [V + 1], slots int32 [2E])``, on the device of
-    ``eu``.  Raises on an endpoint outside ``[0, num_vertices)``: the
-    kernels index vertex arrays by endpoint."""
-    slot_vertex = torch.cat([eu, ev]).to(torch.int64)
-    if slot_vertex.numel():
-        lo, hi = (int(v) for v in torch.aminmax(slot_vertex))
+    vertex: ``(offsets int32 [V + 1], slots int32 [2E])``, numpy arrays for
+    numpy endpoints (built on the host), else on the device of ``eu``.
+    Raises on an endpoint outside ``[0, num_vertices)``: the kernels index
+    vertex arrays by endpoint."""
+    host = isinstance(eu, np.ndarray)
+    slot_vertex = (np.concatenate([eu, ev]).astype(np.int64) if host
+                   else torch.cat([eu, ev]).to(torch.int64))
+    if len(slot_vertex):
+        lo, hi = ((int(slot_vertex.min()), int(slot_vertex.max())) if host
+                  else (int(v) for v in torch.aminmax(slot_vertex)))
         if lo < 0 or hi >= num_vertices:
             raise ValueError(f"edge endpoints span [{lo}, {hi}], outside "
                              f"the {num_vertices} vertices")
+    if host:
+        offsets = np.zeros(num_vertices + 1, np.int32)
+        offsets[1:] = np.cumsum(np.bincount(slot_vertex,
+                                            minlength=num_vertices))
+        return offsets, np.argsort(slot_vertex, kind="stable").astype(
+            np.int32)
     order = torch.sort(slot_vertex, stable=True).indices
     counts = torch.bincount(slot_vertex, minlength=num_vertices)
     offsets = torch.zeros(num_vertices + 1, dtype=torch.int64,
@@ -76,6 +86,7 @@ class GraphD1:
         self.num_vertices = int(num_vertices)
         self.num_edges = int(eu.shape[0])
         self._incidence = None
+        self._incidence_lists = None
         self._host_coo = None
 
     @classmethod
@@ -122,6 +133,20 @@ class GraphD1:
             self._incidence = csr_table(*incidence_csr(self.eu, self.ev,
                                                        self.num_vertices))
         return self._incidence
+
+    def incidence_lists(self):
+        """:func:`incidence_csr` of the graph on its device, built once:
+        from the graph's host copy of its edges where it has one (one copy
+        to the device, no device read), else on the device."""
+        if self._incidence_lists is None:
+            nv = self.num_vertices
+            if self._host_coo is not None:
+                lists = to_device(np.concatenate(incidence_csr(
+                    *self._host_coo[:2], nv)), self.device)
+                self._incidence_lists = lists[:nv + 1], lists[nv + 1:]
+            else:
+                self._incidence_lists = incidence_csr(self.eu, self.ev, nv)
+        return self._incidence_lists
 
     def _gather_slots(self, vals_u, vals_v, pad_value):
         pad = vals_u.new_full((1,) + tuple(vals_u.shape[1:]), pad_value)

@@ -158,7 +158,8 @@ class RankShardedOp(QuadOp):
         component assignment ``cv`` (``rv_cap`` padded components): one-hot
         products up to ``onehot_max`` components, and for a dense operator
         segment sums beyond (never premultiplied there), as the device loop
-        contracts a single-device operator."""
+        contracts a single-device operator; the metric may be pending
+        (:class:`..ops.reduced_setup.PendingMetric`)."""
         raise NotImplementedError
 
 

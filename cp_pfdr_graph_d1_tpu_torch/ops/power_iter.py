@@ -6,7 +6,8 @@ matrix product.  The restarts start from the same numbers as the JAX
 package's ``jax.random.uniform(PRNGKey(0), ...)``: :func:`threefry_uniform`
 reproduces that counter-based generator (Threefry-2x32, 20 rounds, JAX's
 partitionable counter layout) in numpy, so both packages estimate the same
-norm for the same matrix, on any device.
+norm for the same matrix, on any device.  :func:`start_columns` keeps each
+start on its device, made once per shape, type and device.
 """
 from __future__ import annotations
 
@@ -62,6 +63,25 @@ def threefry_uniform(shape, dtype, minval=-1.0, maxval=1.0, key=(0, 0)):
     return np.maximum(lo, f * (hi - lo) + lo).reshape(shape)
 
 
+# (dim, nb_init, dtype, device) -> the restarts' start on that device
+_STARTS: dict = {}
+
+
+def start_columns(dim: int, nb_init: int, dtype, device) -> torch.Tensor:
+    """``threefry_uniform((dim, nb_init), dtype)`` as a tensor on
+    ``device``, made once and kept: the power iterations and the set-up
+    kernel (:mod:`.reduced_setup`) start from it.  Read only."""
+    device = torch.device(device)
+    key = (dim, nb_init, dtype, device)
+    x = _STARTS.get(key)
+    if x is None:
+        x = torch.as_tensor(threefry_uniform((dim, nb_init),
+                                             numpy_dtype(dtype)),
+                            device=device)
+        _STARTS[key] = x
+    return x
+
+
 def operator_norm(gram_apply, dim: int, dtype=torch.float32, device="cuda",
                   *, tol: float = OPERATOR_NORM_TOL,
                   it_max: int = OPERATOR_NORM_IT_MAX,
@@ -74,8 +94,7 @@ def operator_norm(gram_apply, dim: int, dtype=torch.float32, device="cuda",
       tol: per-restart relative convergence tolerance
         (``operator_norm_matrix.cpp:200``).
     """
-    x = torch.as_tensor(threefry_uniform((dim, nb_init), numpy_dtype(dtype)),
-                        device=device)
+    x = start_columns(dim, nb_init, dtype, device)
 
     def norm(z):
         return torch.sqrt((z * z).sum(dim=0))

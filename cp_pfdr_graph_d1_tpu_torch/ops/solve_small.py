@@ -254,7 +254,8 @@ def _check(op_kind, op, vertex_rows, z0, ec, eu, ev, rv, size_limit=True,
 def fused_pfdr_solve_small(op_kind: str, op, aty, ga, th_l1, x0, z0, ec,
                            eu, ev, *, rv: int, it_max: int, rho: float,
                            vkind: str, positivity: bool, lo: float,
-                           hi: float, dif_tol2: float, eps: float):
+                           hi: float, dif_tol2: float, eps: float,
+                           incidence=None):
     """Complete small-problem PFDR solve, on the cluster
     :func:`cluster_size` picks.
 
@@ -270,6 +271,9 @@ def fused_pfdr_solve_small(op_kind: str, op, aty, ga, th_l1, x0, z0, ec,
       rv: true vertex count; entries ``>= rv`` are held at zero.
       it_max, dif_tol2, eps: iteration cap and evolution test, as in the
         PFDR loop.
+      incidence: the edges' :func:`..graph.incidence_csr` on the device,
+        where the caller has it (:meth:`..graph.GraphD1.incidence_lists`);
+        else it is built here.
 
     Returns:
       ``(x [rv_cap], z [2, E], it, dif)`` with ``it`` an int32 and ``dif``
@@ -278,10 +282,11 @@ def fused_pfdr_solve_small(op_kind: str, op, aty, ga, th_l1, x0, z0, ec,
     return _solve(None, op_kind, op, aty, ga, th_l1, x0, z0, ec, eu, ev,
                   rv=rv, it_max=it_max, rho=rho, vkind=vkind,
                   positivity=positivity, lo=lo, hi=hi, dif_tol2=dif_tol2,
-                  eps=eps)
+                  eps=eps, incidence=incidence)
 
 
-def _solve(cluster, op_kind, op, aty, ga, th_l1, x0, z0, ec, eu, ev, **kw):
+def _solve(cluster, op_kind, op, aty, ga, th_l1, x0, z0, ec, eu, ev,
+           incidence=None, **kw):
     """:func:`fused_pfdr_solve_small` on a cluster of ``cluster`` CTAs, or
     on the one :func:`cluster_size` picks for None: the forced size serves
     the timing of each size against the others."""
@@ -298,7 +303,8 @@ def _solve(cluster, op_kind, op, aty, ga, th_l1, x0, z0, ec, eu, ev, **kw):
     n_rows = op.shape[0] if op_kind == "dense" else 0
     eu32 = eu.to(torch.int32).contiguous()
     ev32 = ev.to(torch.int32).contiguous()
-    offsets, slots = incidence_csr(eu32, ev32, rv_cap)
+    offsets, slots = (incidence if incidence is not None
+                      else incidence_csr(eu32, ev32, rv_cap))
     # a cluster writes the edge terms in incidence order: slot s goes to
     # position pos[s] of the list
     pos = None

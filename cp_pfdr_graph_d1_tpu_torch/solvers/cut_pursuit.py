@@ -14,10 +14,11 @@ and the contraction run on the host in numpy and scipy.  Each reduced
 problem goes, in this order, to:
 
 1. one whole-solve kernel when the tensors lie on a CUDA device (or
-   ``pfdr.fused="on"``): the reduced operator and Lipschitz metric are
-   matrix products on the device, the preconditioning runs on the device,
-   and one launch of :mod:`..ops.solve_small` (or, from 4096 reduced
-   vertices on, of :mod:`..ops.solve_fused`) runs the whole PFDR solve.
+   ``pfdr.fused="on"``): the reduced operator is a matrix product on the
+   device, one launch of :mod:`..ops.reduced_setup` runs the Lipschitz
+   metric's power iteration and the preconditioning, and one launch of
+   :mod:`..ops.solve_small` (or, from 4096 reduced vertices on, of
+   :mod:`..ops.solve_fused`) runs the whole PFDR solve.
    PFDR options the kernels do not serve (reconditioning, progress lines)
    send the reduced solves down this list with ``"auto"`` and raise with
    ``"on"`` (:func:`.cut_pursuit_common.reduced_solve_route`);
@@ -43,18 +44,20 @@ from ..config import CPOptions, Lipsch, numpy_dtype
 from ..graph import GraphD1
 from ..operators import (DenseOp, DiagOp, GramOp, IdentityOp, QuadOp,
                          RankShardedOp)
-from ..ops.power_iter import MatApply, dense_operator_norm, operator_norm
+from ..ops.power_iter import GramApply, operator_norm, presymmetrize_wins
+from ..ops.reduced_setup import (PendingMetric, metric_value, reduced_setup,
+                                 settle_metric)
 from ..ops.solve_fused import fused_pfdr_solve
 from ..ops.solve_small import fits, fused_pfdr_solve_small
-from ..utils.monitor import count, solve_entry, span, to_device, to_host
+from ..utils.monitor import (count, read_int, solve_entry, span, to_device,
+                             to_host)
 from .cut_pursuit_common import (bucket, build_reduced_graph,
                                  component_representatives,
                                  connected_components, host_reduce_dense,
                                  host_reduce_diag, host_reduce_gram,
                                  machine_eps, make_reduced_container, np64,
                                  pad_reduced_graph, reduced_solve_route)
-from .pfdr_quadratic import (VertexProx, initial_precondition,
-                             pfdr_quadratic_d1)
+from .pfdr_quadratic import VertexProx, pfdr_quadratic_d1
 
 # dense/Gram operators larger than this are not copied to the host for the
 # cut gradient and the native route
@@ -96,15 +99,6 @@ def _one_hot(cv, rv_cap: int, dtype):
     return torch.nn.functional.one_hot(cv.to(torch.int64), rv_cap).to(dtype)
 
 
-def _equilibrated_norm(raa, rv_cap: int):
-    """Jacobi-equilibrated power-method scale ``c`` of a reduced Gram."""
-    with span("cp.reduced.lipschitz"):
-        d = torch.sqrt(torch.clamp(torch.diagonal(raa), min=0))
-        d_safe = torch.where(d > 0, d, torch.ones_like(d))
-        eq = raa / (d_safe[:, None] * d_safe[None, :])
-        return operator_norm(MatApply(eq), rv_cap, raa.dtype, raa.device)
-
-
 def _reduce_dense(a, obs, cv, rv_cap: int, pre_at: bool):
     """Reduced operator, observation and DIAG Lipschitz metric for the dense
     mode (``CP_PFDR_graph_quadratic_d1_l1.cpp:663-836``): component column
@@ -116,17 +110,28 @@ def _reduce_dense(a, obs, cv, rv_cap: int, pre_at: bool):
 
 def reduced_dense(ra, obs, rv_cap: int, pre_at: bool):
     """Tail of :func:`_reduce_dense` from the component column sums ``ra``
-    [N, rv_cap] (the distributed operators gather them first)."""
+    [N, rv_cap] (the distributed operators gather them first).  The metric
+    is left pending (:class:`..ops.reduced_setup.PendingMetric`) on the
+    reduced Gram with ``pre_at``, else on the smaller Gram matrix of the
+    normalised columns where :func:`..ops.power_iter.presymmetrize_wins`
+    says so; else the power iteration applies them twice a step, here."""
     if pre_at:
         with span("cp.reduced.operator"):
             raa = ra.T @ ra
             ry = ra.T @ obs
-        return raa, ry, torch.diagonal(raa) * _equilibrated_norm(raa, rv_cap)
+        return raa, ry, PendingMetric(raa, True, torch.diagonal(raa))
     with span("cp.reduced.operator"):
         cn = torch.sqrt((ra * ra).sum(dim=0))
         cn_safe = torch.where(cn > 0, cn, torch.ones_like(cn))
+        a = ra / cn_safe
+        m, n = a.shape
+        gram = None
+        if presymmetrize_wins(m, n):
+            gram = a @ a.T if m <= n else a.T @ a
+    if gram is not None:
+        return ra, obs, PendingMetric(gram, False, cn * cn)
     with span("cp.reduced.lipschitz"):
-        c = dense_operator_norm(ra / cn_safe)
+        c = operator_norm(GramApply(a), n, a.dtype, a.device)
     return ra, obs, cn * cn * c
 
 
@@ -140,8 +145,9 @@ def _reduce_gram(gram, obs, cv, rv_cap: int):
 
 def reduced_gram(raa, ry, rv_cap: int):
     """Tail of :func:`_reduce_gram` from the reduced Gram ``raa`` and
-    observation ``ry`` (the distributed operators sum them first)."""
-    return raa, ry, torch.diagonal(raa) * _equilibrated_norm(raa, rv_cap)
+    observation ``ry`` (the distributed operators sum them first): the
+    metric of its Jacobi-equilibrated power method, pending."""
+    return raa, ry, PendingMetric(raa, True, torch.diagonal(raa))
 
 
 def _reduce_diag(diag, obs, cv, rv_cap: int):
@@ -158,7 +164,10 @@ def _reduce_operator(kind: str, op_arr, obs, cv, rv_cap: int, pre_at: bool):
     for an operator of kind "dense", "gram" or "diag", or "dist" (then
     ``op_arr`` is the operator: its ``reduced`` method sums the reduction
     over the ranks it is sharded on, and every rank gets the same reduced
-    problem; one-hot products at every size, as for the other kinds)."""
+    problem; one-hot products at every size, as for the other kinds).
+    The metric may be pending (:class:`..ops.reduced_setup.PendingMetric`):
+    :func:`_kernel_solve` hands it to the set-up, the other routes take
+    :func:`..ops.reduced_setup.metric_value`."""
     if kind == "dist":
         return op_arr.reduced(obs, cv, rv_cap, pre_at, onehot_max=rv_cap)
     if kind == "dense":
@@ -193,24 +202,22 @@ def kernel_solve_inputs(r_op: QuadOp, mat, ry, lipsch, rgraph: GraphD1,
                         r_la_l1, x0, rv: int, *, vprox: VertexProx,
                         rho: float, dif_tol: float, sort_edges: bool):
     """Arguments of the whole-solve kernels for one reduced problem: the
-    preconditioning on the reduced graph, then the vertex rows, the edge
-    rows (sorted stably by their smaller endpoint with ``sort_edges``, the
-    order ``solve_fused`` takes) and the options.  Returns ``(args, kw)``
+    set-up (:func:`..ops.reduced_setup.reduced_setup`: the metric of a
+    :class:`..ops.reduced_setup.PendingMetric`, the preconditioning on the
+    reduced graph, the edge rows and the warm start's endpoint values), the
+    edges sorted stably by their smaller endpoint with ``sort_edges`` (the
+    order ``solve_fused`` takes), and the options.  Returns ``(args, kw)``
     for :func:`..ops.solve_small.fused_pfdr_solve_small` or
     :func:`..ops.solve_fused.fused_pfdr_solve` (``it_max`` not
     included)."""
-    pre = initial_precondition(r_op, ry, rgraph, r_la_l1, rho, lipsch,
-                               Lipsch.DIAG)
-    op_kind = _op_kind(r_op)
-    aty = r_op.apply_t(ry) if op_kind == "dense" else ry
-    eu, ev = rgraph.eu, rgraph.ev
-    ec = torch.stack([pre.wu, pre.wv, pre.w_d1u, pre.w_d1v, pre.th_d1])
+    s = reduced_setup(r_op, mat, ry, lipsch, rgraph, r_la_l1, x0, rho=rho)
+    eu, ev, ec, z0 = rgraph.eu, rgraph.ev, s.ec, s.z0
     if sort_edges:
         perm = torch.sort(torch.minimum(eu, ev), stable=True).indices
-        eu, ev, ec = eu[perm], ev[perm], ec[:, perm].contiguous()
-    args = (op_kind, mat.contiguous(), aty.contiguous(), pre.ga.contiguous(),
-            pre.th_l1.contiguous(), x0.contiguous(),
-            torch.stack([x0[eu], x0[ev]]), ec, eu, ev)
+        eu, ev = eu[perm], ev[perm]
+        ec, z0 = ec[:, perm].contiguous(), z0[:, perm].contiguous()
+    args = (_op_kind(r_op), mat.contiguous(), s.aty, s.ga, s.th_l1,
+            x0.contiguous(), z0, ec, eu, ev)
     kw = dict(rv=rv, rho=rho, vkind=vprox.kind, positivity=vprox.positivity,
               lo=float(vprox.lo), hi=float(vprox.hi),
               dif_tol2=float(dif_tol) ** 2,
@@ -237,9 +244,14 @@ def _kernel_solve(r_op: QuadOp, mat, ry, lipsch, rgraph: GraphD1, r_la_l1,
     the result beyond float rounding.  CPU tensors run the kernels' plain
     versions.
 
+    The power iteration of a pending metric that the set-up kernel does
+    not take (:func:`..ops.reduced_setup.settle_metric`) runs first, in its
+    own span.
+
     Args:
       r_op, mat, ry, lipsch: reduced operator, its array, observation and
-        DIAG Lipschitz metric (:func:`_reduce_operator`).
+        DIAG Lipschitz metric (:func:`_reduce_operator`, a tensor or
+        pending).
       rgraph: reduced graph over ``rv_cap = rgraph.num_vertices`` vertices
         (components ``>= rv`` are padding; padding edges have weight 0).
       r_la_l1: [rv_cap] summed l1 weights, or None.
@@ -250,13 +262,17 @@ def _kernel_solve(r_op: QuadOp, mat, ry, lipsch, rgraph: GraphD1, r_la_l1,
     """
     small = (rgraph.num_vertices < SOLVE_FUSED_MIN_RV_CAP[_op_kind(r_op)]
              and fits_small(r_op, mat, rgraph.num_vertices))
+    lipsch = settle_metric(lipsch)
     with span("cp.reduced.precondition"):
         args, kw = kernel_solve_inputs(r_op, mat, ry, lipsch, rgraph,
                                        r_la_l1, x0, rv, vprox=vprox, rho=rho,
                                        dif_tol=dif_tol, sort_edges=not small)
     with span("cp.reduced.launch"):
         if small:
-            x, _, it, _ = fused_pfdr_solve_small(*args, it_max=it_max, **kw)
+            # the set-up kernel's incidence lists serve the solve too
+            x, _, it, _ = fused_pfdr_solve_small(
+                *args, it_max=it_max, **kw, incidence=(
+                    rgraph.incidence_lists() if x0.is_cuda else None))
         else:
             x, _, it, _ = fused_pfdr_solve(*args, it_max=it_max, **kw)
     return x, it
@@ -269,7 +285,8 @@ def _reduce_solve_small(op_arr, obs, cv, rgraph: GraphD1, r_la_l1, x0,
     the JAX package's ``_reduce_solve_small``): the reduced operator and
     Lipschitz metric (:func:`_reduce_operator`, ``op_arr`` the full
     operator's array, ``cv`` int [V] labels on the device), then
-    :func:`_kernel_solve`.  Returns ``(x [rv_cap], it)``."""
+    :func:`_kernel_solve`.  Returns
+    ``(x [rv_cap], it)``."""
     r_op, mat, ry, lipsch = _reduce_operator(kind, op_arr, obs, cv,
                                              rgraph.num_vertices, pre_at)
     return _kernel_solve(r_op, mat, ry, lipsch, rgraph, r_la_l1, x0, rv,
@@ -575,9 +592,9 @@ def cp_quadratic_d1(op: QuadOp, obs, graph: GraphD1, *,
 
     def read_back(x, it_d, num_comp):
         """The reduced solve's [num_comp] values on the host: the host waits
-        on the device here."""
+        on the device here (and, traced, reads the set-up's power steps)."""
         with span("cp.reduced.wait"):
-            its = int(it_d)
+            its = read_int(it_d)
             x = to_host(x)[:num_comp].astype(dtype)
         reduced_iters(its)
         return x
@@ -652,6 +669,7 @@ def cp_quadratic_d1(op: QuadOp, obs, graph: GraphD1, *,
                 x0_d, l1_d = to_device(x0, device), reduced_l1(rv_cap, cv)
             r_op, _, ry, lipsch = _reduce_operator(kind, op_arr, obs, cv_d,
                                                    rv_cap, pre_at)
+            lipsch = metric_value(lipsch)
             # -- reduced PFDR solve (:842-859) -------------------------------
             with span("cp.reduced.launch"):
                 res = pfdr_quadratic_d1(

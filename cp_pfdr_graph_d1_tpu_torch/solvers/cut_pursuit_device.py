@@ -66,10 +66,12 @@ from ..ops.components import connected_components_device
 from ..ops.components_fused import (compact_labels_device,
                                     device_components_stencil_fused)
 from ..ops.mincut_fused import device_cut_stencil_fused
-from ..ops.power_iter import dense_operator_norm
+from ..ops.reduced_setup import metric_value
 from ..stencil import StencilGraphD1
+from ..utils.monitor import read_int
 from .cut_pursuit import (CPResult, CPState, _kernel_solve, _objective,
-                          _reduce_dense, _reduce_diag, _reduce_gram)
+                          _reduce_dense, _reduce_diag, _reduce_gram,
+                          reduced_dense)
 from .cut_pursuit_common import (_ONEHOT_MAX, bucket, machine_eps,
                                  make_reduced_container, reduced_solve_route)
 from .pfdr_quadratic import VertexProx, pfdr_quadratic_d1
@@ -279,10 +281,7 @@ def _segment_reduce_dense(a, obs, cv, rv_cap: int):
     premultiplied (the [rV, rV] Gram would not fit, and the reference's
     premultiplication rule never picks it at rV >> N)."""
     ra = _run_sums(a.T, cv, rv_cap).T                      # [N, rv_cap]
-    cn = torch.sqrt((ra * ra).sum(dim=0))
-    cn_safe = torch.where(cn > 0, cn, torch.ones_like(cn))
-    c = dense_operator_norm(ra / cn_safe)
-    return ra, obs, cn * cn * c
+    return reduced_dense(ra, obs, rv_cap, False)
 
 
 def _segment_reduce_diag(diag, obs, cv, rv_cap: int):
@@ -317,7 +316,8 @@ def _reduced_problem(op: QuadOp, obs, cv, num_comp: int, rv_cap: int,
     components, segment sums beyond.  A rank-sharded operator contracts
     itself (:meth:`..operators.RankShardedOp.reduced`, the same result on
     every rank); its premultiplication rule counts the global observation
-    axis, as the host loop does."""
+    axis, as the host loop does.  The metric may be pending, as in
+    :func:`.cut_pursuit._reduce_operator`."""
     if isinstance(op, GramOp) and rv_cap > onehot_max:
         raise ValueError(
             f"premultiplied (A^t A) mode cannot contract to {num_comp} "
@@ -590,8 +590,9 @@ def cp_quadratic_d1_device(op: QuadOp, obs, graph: GraphD1, *,
                 r_la_l1 if has_l1 else None, rx0, num_comp, opt.pfdr.it_max,
                 vprox=vprox, rho=float(opt.pfdr.rho),
                 dif_tol=float(opt.pfdr.dif_tol))
-            pfdr_it_prev = max(int(it_d), 1)
+            pfdr_it_prev = max(read_int(it_d), 1)
         else:
+            lipsch = metric_value(lipsch)
             res = pfdr_quadratic_d1(
                 r_op, ry, rgraph, la_l1=r_la_l1 if has_l1 else None,
                 vprox=vprox, lipsch=lipsch, ltype=Lipsch.DIAG, x0=rx0,

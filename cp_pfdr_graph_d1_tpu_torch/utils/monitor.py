@@ -12,6 +12,8 @@ solve also records its stages: spans ``(name, parent, start, end)`` and
 counters, kept in memory and returned by :func:`trace_records`.  A solve
 asks once, at its entry (:func:`solve_entry`), whether a profiler records;
 when none does, every :func:`span` and :func:`count` is a shared no-op.
+A counter kept on the device (:func:`count_device`) is read with the
+solve's next :func:`read_int`, in the same copy, only while traced.
 Span times are ``time.time_ns()``, the clock of the profiler's events, so
 a span lines up with the kernels of the same profile; each span is also a
 ``record_function`` range of its name, so the profiler's own trace shows
@@ -61,7 +63,7 @@ _RANGE = (getattr(torch._C._profiler, "_RecordFunctionFast", None)
 
 class _Solve:
     __slots__ = ("id", "start_ns", "end_ns", "spans", "stack", "counters",
-                 "dropped")
+                 "on_device", "dropped")
 
     def __init__(self, solve_id: int):
         self.id = solve_id
@@ -70,6 +72,7 @@ class _Solve:
         self.spans = []       # [name, parent index or -1, start_ns, end_ns]
         self.stack = []       # indices of the open spans, innermost last
         self.counters = {}
+        self.on_device = []   # (name, 0-d device int) not read yet
         self.dropped = 0
 
 
@@ -163,6 +166,22 @@ class Tracer:
         if s is not None:
             s.counters[name] = s.counters.get(name, 0) + int(n)
 
+    def count_device(self, name: str, t) -> None:
+        """Adds the 0-d integer tensor ``t`` to the open solve's counter
+        ``name`` at its next :meth:`read_int` (or its end); untraced, a
+        no-op that reads nothing."""
+        s = self._local.solve
+        if s is not None:
+            s.on_device.append((name, t))
+
+    def read_int(self, t) -> int:
+        """``int(t)`` of a 0-d integer tensor; in a traced solve the device
+        counters not read yet come with it, in the same copy."""
+        s = self._local.solve
+        if s is None or not s.on_device:
+            return int(t)
+        return _read_counters(s, t)
+
     def _open_solve(self):
         with self._lock:
             if self._stale:
@@ -176,6 +195,8 @@ class Tracer:
     def _close_solve(self):
         s = self._local.solve
         self._local.solve = None
+        if s.on_device:
+            _read_counters(s)
         s.end_ns = time.time_ns()
         with self._lock:
             self._done.append(s)
@@ -213,9 +234,25 @@ class Tracer:
         return out
 
 
+def _read_counters(s: _Solve, t=None):
+    """Adds the solve's device counters to its counters in one read, with
+    ``t`` first when given; returns ``int(t)``."""
+    vals = [v.reshape(()).to(torch.int64) for _, v in s.on_device]
+    if t is not None:
+        vals.insert(0, t.reshape(()).to(torch.int64))
+    vals = torch.stack(vals).tolist()
+    first = vals.pop(0) if t is not None else None
+    for (name, _), v in zip(s.on_device, vals):
+        s.counters[name] = s.counters.get(name, 0) + v
+    s.on_device.clear()
+    return first
+
+
 _TRACER = Tracer()
 span = _TRACER.span
 count = _TRACER.count
+count_device = _TRACER.count_device
+read_int = _TRACER.read_int
 trace_records = _TRACER.records
 
 

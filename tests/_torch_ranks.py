@@ -390,6 +390,7 @@ def cp_dist_reduced_cases(mesh):
     ``{"dist": (kind, mat, ry, lipsch), "single": ...}``, or the two
     errors' messages."""
     from cp_pfdr_graph_d1_tpu_torch import DenseOp, GramOp
+    from cp_pfdr_graph_d1_tpu_torch.ops.reduced_setup import metric_value
     from cp_pfdr_graph_d1_tpu_torch.parallel import \
         shard_cp_quadratic_problem
     from cp_pfdr_graph_d1_tpu_torch.solvers.cut_pursuit_common import bucket
@@ -404,7 +405,7 @@ def cp_dist_reduced_cases(mesh):
         except ValueError as e:
             return str(e)
         return (type(r_op).__name__, mat.numpy(), ry.numpy(),
-                lipsch.numpy())
+                metric_value(lipsch).numpy())
 
     out = {}
     r = np.random.default_rng(13)

@@ -21,6 +21,7 @@ from cp_pfdr_graph_d1_tpu_torch import GraphD1, VertexProx
 from cp_pfdr_graph_d1_tpu_torch.config import Lipsch
 from cp_pfdr_graph_d1_tpu_torch.operators import DenseOp, DiagOp, GramOp
 from cp_pfdr_graph_d1_tpu_torch.ops import solve_small
+from cp_pfdr_graph_d1_tpu_torch.ops.reduced_setup import metric_value
 from cp_pfdr_graph_d1_tpu_torch.solvers import cut_pursuit as tcp
 from cp_pfdr_graph_d1_tpu_torch.solvers.pfdr_quadratic import \
     initial_precondition
@@ -92,7 +93,8 @@ def kernel_inputs(mode, vkind, rv, seed):
     g = GraphD1.create(reu, rev, rla, num_vertices=RV_CAP,
                        dtype=torch.float64, device="cpu")
     la_l1 = t(np.full(RV_CAP, 0.02)) if vkind.startswith("l1") else None
-    pre = initial_precondition(r_op, ry, g, la_l1, 1.4, lipsch, Lipsch.DIAG)
+    pre = initial_precondition(r_op, ry, g, la_l1, 1.4, metric_value(lipsch),
+                               Lipsch.DIAG)
     if kind == "dense" and not pre_at:
         op_kind, aty = "dense", r_op.apply_t(ry)
     else:
