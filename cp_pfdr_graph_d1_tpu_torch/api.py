@@ -54,16 +54,18 @@ class PFDROutput(NamedTuple):
 
 def _cp_options(CP_difTol, CP_itMax, PFDR_rho, PFDR_condMin, PFDR_difRcd,
                 PFDR_difTol, PFDR_itMax, verbose,
-                inexact: str = "auto") -> CPOptions:
+                inexact: str = "auto", cut: str = "host",
+                chain: str = "auto") -> CPOptions:
     """Cut-pursuit options of the compatibility wrappers; ``inexact="off"``
     reproduces the reference trajectory (every reduced solve at full
-    accuracy)."""
+    accuracy); ``cut`` and ``chain`` are :class:`CPOptions`'s, whose
+    other device-cut settings keep their defaults."""
     return CPOptions(
         dif_tol=float(CP_difTol), it_max=int(CP_itMax),
         pfdr=PFDROptions(rho=float(PFDR_rho), cond_min=float(PFDR_condMin),
                          dif_rcd=float(PFDR_difRcd),
                          dif_tol=float(PFDR_difTol), it_max=int(PFDR_itMax)),
-        verbose=int(verbose), inexact=inexact)
+        verbose=int(verbose), inexact=inexact, cut=cut, chain=chain)
 
 
 def _graph(Eu, Ev, La_d1, num_vertices, dtype, device,
@@ -132,12 +134,19 @@ def cp_quadratic_d1_l1(Y, A, Eu, Ev, La_d1, La_l1=None, positivity=False,
                        PFDR_condMin=1e-3, PFDR_difRcd=0.0, PFDR_difTol=1e-4,
                        PFDR_itMax=10_000, verbose=0, duplex=False,
                        monitor=False, state=None, graph=None,
-                       inexact="auto", device="cuda") -> CPOutput:
+                       inexact="auto", device="cuda", *, cut="host",
+                       chain="auto") -> CPOutput:
     """Fused LASSO ``1/2||y - A x||^2 + d1 + l1`` with dense N-by-V ``A``
     (``CP_PFDR_graph_quadratic_d1_l1_mex.cpp:12``; ``duplex=True`` selects
     the two-layer ternary cut).  Pass a prebuilt ``graph`` (e.g. a
     :class:`~.stencil.StencilGraphD1` on ``device``) to skip the COO
-    construction; ``Eu``/``Ev``/``La_d1`` are then ignored."""
+    construction; ``Eu``/``Ev``/``La_d1`` are then ignored.
+
+    ``cut`` and ``chain`` are the port's own keywords (the reference and
+    the JAX package's API have neither), passed to :class:`CPOptions`:
+    ``cut="device"`` runs the cut, components and contraction on
+    ``device`` (the chained loop or the per-iteration device loop, as
+    ``chain`` says); the defaults run upstream's host max-flow."""
     with span("api.inputs"):
         dtype = _dtype_of(Y, A)
         a = _tensor(A, dtype, device)
@@ -146,7 +155,7 @@ def cp_quadratic_d1_l1(Y, A, Eu, Ev, La_d1, La_l1=None, positivity=False,
                                                    dtype, device)
         opt = _cp_options(CP_difTol, CP_itMax, PFDR_rho, PFDR_condMin,
                           PFDR_difRcd, PFDR_difTol, PFDR_itMax, verbose,
-                          inexact)
+                          inexact, cut, chain)
     return _cp_run(DenseOp(a), obs, g, La_l1, positivity, None, duplex, opt,
                    monitor, state)
 
@@ -157,8 +166,10 @@ def cp_quadratic_d1_l1_AtA(AtY, AtA, Eu, Ev, La_d1, La_l1=None,
                            PFDR_rho=1.0, PFDR_condMin=1e-3, PFDR_difRcd=0.0,
                            PFDR_difTol=1e-4, PFDR_itMax=10_000, verbose=0,
                            duplex=False, monitor=False, state=None,
-                           inexact="auto", device="cuda") -> CPOutput:
-    """Premultiplied variant: arguments are ``A^t Y`` and ``A^t A``."""
+                           inexact="auto", device="cuda", *, cut="host",
+                           chain="auto") -> CPOutput:
+    """Premultiplied variant: arguments are ``A^t Y`` and ``A^t A``;
+    ``cut`` and ``chain`` as in :func:`cp_quadratic_d1_l1`."""
     with span("api.inputs"):
         dtype = _dtype_of(AtY, AtA)
         gram = _tensor(AtA, dtype, device)
@@ -166,7 +177,7 @@ def cp_quadratic_d1_l1_AtA(AtY, AtA, Eu, Ev, La_d1, La_l1=None,
         g = _graph(Eu, Ev, La_d1, gram.shape[1], dtype, device)
         opt = _cp_options(CP_difTol, CP_itMax, PFDR_rho, PFDR_condMin,
                           PFDR_difRcd, PFDR_difTol, PFDR_itMax, verbose,
-                          inexact)
+                          inexact, cut, chain)
     return _cp_run(GramOp(gram), obs, g, La_l1, positivity, None, duplex,
                    opt, monitor, state)
 
@@ -176,10 +187,11 @@ def cp_l22_d1_l1(Y, La_l2, Eu, Ev, La_d1, La_l1=None, positivity=False,
                  CP_difTol=1e-3, CP_itMax=10, PFDR_rho=1.0,
                  PFDR_condMin=1e-3, PFDR_difRcd=0.0, PFDR_difTol=1e-4,
                  PFDR_itMax=10_000, verbose=0, duplex=False, monitor=False,
-                 state=None, inexact="auto", device="cuda") -> CPOutput:
+                 state=None, inexact="auto", device="cuda", *, cut="host",
+                 chain="auto") -> CPOutput:
     """Weighted-distance case ``1/2||y - x||^2_{La_l2} + d1 + l1``
     (``CP_PFDR_graph_l22_d1_l1_mex.cpp:65-94``); ``La_l2=None`` means the
-    identity."""
+    identity; ``cut`` and ``chain`` as in :func:`cp_quadratic_d1_l1`."""
     with span("api.inputs"):
         Y = np.asarray(Y)
         dtype = _dtype_of(Y, La_l2)
@@ -187,7 +199,7 @@ def cp_l22_d1_l1(Y, La_l2, Eu, Ev, La_d1, La_l1=None, positivity=False,
         g = _graph(Eu, Ev, La_d1, num_v, dtype, device)
         opt = _cp_options(CP_difTol, CP_itMax, PFDR_rho, PFDR_condMin,
                           PFDR_difRcd, PFDR_difTol, PFDR_itMax, verbose,
-                          inexact)
+                          inexact, cut, chain)
         op, obs, y2 = _l22_operator(Y, La_l2, num_v, dtype, device)
     out = _cp_run(op, obs, g, La_l1, positivity, None, duplex, opt, monitor,
                   state)

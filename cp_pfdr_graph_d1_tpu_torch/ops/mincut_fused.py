@@ -37,6 +37,7 @@ from typing import Tuple
 import torch
 
 from .. import _build
+from ..utils.monitor import count, count_device
 from .stencil_fused import MAX_FAMILIES, _roll2
 
 THRESHOLDS = 15    # cut candidates per certificate (coarea levels)
@@ -319,11 +320,14 @@ def device_cut_stencil_fused(graph, active, cost, tol_rel: float,
     """One steepest cut on a stencil graph, active edges weight-masked out
     (:func:`cut_problem`, then :func:`fused_pdhg_min_cut`).  Returns
     ``(sep [E] bool, gap, big, x [V], z [E])`` with ``gap`` and ``big``
-    0-d tensors."""
+    0-d tensors.  A traced solve counts the cut in ``mincut.launches`` and
+    its PDHG steps in ``mincut.steps``, read with the solve's next read."""
     args, big = cut_problem(graph, torch.where(active, 0.0, graph.la_d1),
                             cost, tol_rel, x0, z0)
-    x, z, gap, t_best, _ = fused_pdhg_min_cut(
+    x, z, gap, t_best, steps = fused_pdhg_min_cut(
         *args, it_max, shifts=graph.shifts, check_every=check_every)
+    count("mincut.launches", 1)
+    count_device("mincut.steps", steps)
     x = x.reshape(-1)
     z = z.reshape(-1)
     su, sv = graph.gather_endpoints(x > t_best)

@@ -15,7 +15,7 @@ the result is kept:
 * the warm partition: ``chain_init_pfdr`` full-graph PFDR iterations (the
   stencil kernel on the card), whose jump set, thresholded at an adaptive
   level until at most 384 components remain, is the starting partition;
-  a first pass then solves that partition without cutting (``pre_pending``);
+  a first pass then solves that partition without cutting (``cp.settle``);
 * a fresh single-component start runs its first iteration through the host
   route (the first cut shatters the graph);
 * the inexact caps: intermediate reduced solves stop at
@@ -36,6 +36,7 @@ versions for CPU tensors).  Reference loop: ``CP_PFDR_graph_quadratic_d1_l1
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import time as _time
 import warnings
@@ -49,10 +50,11 @@ from ..operators import (DenseOp, DiagOp, GramOp, IdentityOp, QuadOp,
                          RankShardedOp)
 from ..ops.power_iter import dense_operator_norm, operator_norm
 from ..stencil import StencilGraphD1
+from ..utils.monitor import count, count_device, span
 from .cut_pursuit import CPResult, CPState, _kernel_solve, fits_small
 from .cut_pursuit_common import connected_components, machine_eps
 from .cut_pursuit_device import (_device_cut, _device_merge,
-                                 _direction_costs, _evolution,
+                                 _direction_costs, _evolution, _read_cuts,
                                  _reduce_vertex_terms, _reduced_problem,
                                  contract, cp_quadratic_d1_device,
                                  problem_setup, scalar_init)
@@ -129,6 +131,7 @@ def _warm_partition(op: QuadOp, obs, graph: StencilGraphD1, la_l1,
         if ncomp0 <= _WARM_MAX_COMPONENTS or thr > md:
             break
         thr *= 1.6
+    count("warm.components", ncomp0)
     counts = np.bincount(cv0, minlength=ncomp0)
     sums = np.zeros(ncomp0)
     np.add.at(sums, cv0, x0h)
@@ -155,10 +158,12 @@ def _chain_solve(op: QuadOp, obs, la_l1_dev, has_l1: bool,
     r_op, mat, ry, lipsch = _reduced_problem(op, obs, cv, num_comp, rv_cap,
                                              1, pre_at_allowed=False)
     it_max = it_small if fits_small(r_op, mat, rv_cap) else it_fused
-    rx, _ = _kernel_solve(
+    rx, it = _kernel_solve(
         r_op, mat, ry, lipsch, rgraph, r_la_l1 if has_l1 else None, rx0,
         num_comp, it_max, vprox=vprox, rho=float(opt.pfdr.rho),
         dif_tol=float(opt.pfdr.dif_tol))
+    count("reduced.launches", 1)
+    count_device("reduced.iters", it)
     return rx
 
 
@@ -167,29 +172,43 @@ def cp_quadratic_d1_chain(op: QuadOp, obs, graph: GraphD1, *,
                           bounds=None, opt: CPOptions = CPOptions(),
                           state: CPState | None = None) -> CPResult:
     """Chained device-resident cut-pursuit solve (same contract as
-    :func:`.cut_pursuit.cp_quadratic_d1`); see the module docstring."""
+    :func:`.cut_pursuit.cp_quadratic_d1`); see the module docstring.
+
+    A traced solve (:mod:`..utils.monitor`) records ``cp.init``,
+    ``cp.warm`` (:func:`_warm_partition`), ``cp.settle`` (the warm
+    partition's first solve, no CP iteration), a ``cp.iter`` an iteration
+    with the device loop's children (``cp.device_cut``,
+    ``cp.device_components``, ``cp.device_reduced``, ``cp.device_merge``;
+    the chain never reads a reduced solve's iterations, so the evolution's
+    read in ``cp.device_merge`` is where the host waits for it) and
+    ``cp.polish`` (with the result's read-back); counters
+    ``warm.components``, ``reduced.launches``, ``reduced.iters`` and
+    ``chain.fallbacks`` (a discarded chain, redone through the device
+    loop, whose spans follow)."""
     from .cut_pursuit import cp_quadratic_d1 as host_cp
     t0 = _time.monotonic()
-    num_v = graph.num_vertices
-    device = obs.device
-    dtype = numpy_dtype(obs.dtype)
-    la_l1_dev, has_l1, lo, hi, differentiable, vprox = problem_setup(
-        num_v, obs, la_l1, positivity, bounds)
-    eps = machine_eps(dtype, opt.dif_tol)
-    dif_tol2 = opt.dif_tol * opt.dif_tol
-    inexact_on = (opt.inexact == "auto"
-                  and opt.pfdr.it_max > opt.inexact_cap)
-    inner_cap = opt.inexact_cap if inexact_on else opt.pfdr.it_max
-    fused_cap = min(inner_cap, _FUSED_INNER_CAP)
-    chk = min(250, opt.cut_it_max)
+    with span("cp.init"):
+        num_v = graph.num_vertices
+        device = obs.device
+        dtype = numpy_dtype(obs.dtype)
+        la_l1_dev, has_l1, lo, hi, differentiable, vprox = problem_setup(
+            num_v, obs, la_l1, positivity, bounds)
+        eps = machine_eps(dtype, opt.dif_tol)
+        dif_tol2 = opt.dif_tol * opt.dif_tol
+        inexact_on = (opt.inexact == "auto"
+                      and opt.pfdr.it_max > opt.inexact_cap)
+        inner_cap = opt.inexact_cap if inexact_on else opt.pfdr.it_max
+        fused_cap = min(inner_cap, _FUSED_INNER_CAP)
+        chk = min(250, opt.cut_it_max)
 
     presolve = False
     if (state is None and opt.chain_init_pfdr > 0
             and not isinstance(op, GramOp)
             and isinstance(graph, StencilGraphD1)):
-        state = _warm_partition(op, obs, graph,
-                                la_l1_dev if has_l1 else None, vprox, opt,
-                                dtype)
+        with span("cp.warm"):
+            state = _warm_partition(op, obs, graph,
+                                    la_l1_dev if has_l1 else None, vprox,
+                                    opt, dtype)
         presolve = True
     if state is None:
         x1 = scalar_init(op, obs, num_v, la_l1_dev, has_l1, positivity,
@@ -218,16 +237,41 @@ def cp_quadratic_d1_chain(op: QuadOp, obs, graph: GraphD1, *,
                                                pfdr=pf),
                        state=st)
 
+    def solve_on(active_new, evolve: bool, it_small: int = inner_cap,
+                 it_fused: int = fused_cap):
+        """Contraction, reduced solve (capped as :func:`_chain_solve`
+        says), merge and (``evolve``) the evolution from ``x_full`` on the
+        partition of ``active_new``: ``(cv, num_comp, rx, x_new, active,
+        dif)``."""
+        with span("cp.device_components"):
+            cv, num_comp, firsts, rgraph = contract(graph, active_new, eps)
+        with span("cp.device_reduced"):
+            rx = _chain_solve(op, obs, la_l1_dev, has_l1, vprox, opt, cv,
+                              num_comp, firsts, rgraph, x_full, it_small,
+                              it_fused)
+        with span("cp.device_merge"):
+            x_new = rx[cv.to(torch.int64)]
+            merged = _device_merge(graph, x_new, active_new, eps,
+                                   opt.dif_tol)
+            dif = float(_evolution(x_new, x_full, eps)) if evolve else None
+        return cv, num_comp, rx, x_new, merged, dif
+
     it = 0
     dif = max(dif_tol2, 1.0)
     difs = []
     cut1 = cut2 = (None, None)     # PDHG warm starts per direction
     host_forced = num_comp == 1
-    pre_pending = presolve and num_comp > 1
+    if presolve and num_comp > 1 and opt.it_max > 0:
+        # settle the warm partition's values before the first cut: no CP
+        # iteration, dif keeps its sentinel
+        with span("cp.settle"):
+            cv, num_comp, rx, x_full, active, _ = solve_on(active, False)
+    uncertified = False
     while it < opt.it_max and dif >= dif_tol2:
         if host_forced:
             # the first cut of a fresh solve shatters the single component:
-            # it runs on the host route
+            # it runs on the host route (its spans under a cp.solve of
+            # their own)
             res1 = host_one(CPState(active=active.cpu().numpy(),
                                     cv=cv.cpu().numpy(),
                                     rx=rx.cpu().numpy()))
@@ -243,36 +287,26 @@ def cp_quadratic_d1_chain(op: QuadOp, obs, graph: GraphD1, *,
             host_forced = False
             continue
 
-        if pre_pending:
-            # settle the warm partition's values before the first cut
-            active_new = active
-        else:
-            c1, c2 = _direction_costs(
-                op, obs, graph, x_full, active, la_l1_dev, lo=lo, hi=hi,
-                differentiable=differentiable, has_l1=has_l1,
-                positivity=positivity)
-            sep, gap1, big1, *cut1 = _device_cut(
-                graph, active, c1, opt.cut_tol, opt.cut_it_max, chk, *cut1)
-            checks = [gap1, big1]
-            if not differentiable:
-                sep2, gap2, big2, *cut2 = _device_cut(
-                    graph, active, c2, opt.cut_tol, opt.cut_it_max, chk,
-                    *cut2)
-                checks += [gap2, big2]
-                sep = sep | sep2
-            *gaps, n_new = torch.stack(
-                [v.to(torch.float64) for v in checks]
-                + [sep.sum().to(torch.float64)]).tolist()
-            if not all(gap <= opt.cut_tol * big
-                       for gap, big in zip(gaps[::2], gaps[1::2])):
-                # exactness guard: the chain's result is discarded
-                warnings.warn(
-                    "a chained PDHG cut exited uncertified; redoing the "
-                    "solve through the per-iteration device path",
-                    UserWarning, stacklevel=2)
-                return cp_quadratic_d1_device(
-                    op, obs, graph, la_l1=la_l1, positivity=positivity,
-                    bounds=bounds, opt=opt, state=state)
+        with span("cp.iter"):
+            with span("cp.device_cut"):
+                c1, c2 = _direction_costs(
+                    op, obs, graph, x_full, active, la_l1_dev, lo=lo, hi=hi,
+                    differentiable=differentiable, has_l1=has_l1,
+                    positivity=positivity)
+                sep, gap1, big1, *cut1 = _device_cut(
+                    graph, active, c1, opt.cut_tol, opt.cut_it_max, chk,
+                    *cut1)
+                checks = [gap1, big1]
+                if not differentiable:
+                    sep2, gap2, big2, *cut2 = _device_cut(
+                        graph, active, c2, opt.cut_tol, opt.cut_it_max, chk,
+                        *cut2)
+                    checks += [gap2, big2]
+                    sep = sep | sep2
+                n_new, certified = _read_cuts(sep, checks, opt.cut_tol)
+            if not certified:
+                uncertified = True
+                break
             active_new = active | sep
             if n_new == 0:  # nothing to recompute (:556-563)
                 active = active_new
@@ -280,35 +314,33 @@ def cp_quadratic_d1_chain(op: QuadOp, obs, graph: GraphD1, *,
                 difs.append(0.0)
                 it += 1
                 continue
-
-        cv, num_comp, firsts, rgraph = contract(graph, active_new, eps)
-        rx = _chain_solve(op, obs, la_l1_dev, has_l1, vprox, opt, cv,
-                          num_comp, firsts, rgraph, x_full, inner_cap,
-                          fused_cap)
-        x_new = rx[cv.to(torch.int64)]
-        active = _device_merge(graph, x_new, active_new, eps, opt.dif_tol)
-        if pre_pending:
-            # the settle pass is no CP iteration: dif keeps its sentinel
-            pre_pending = False
-        else:
-            dif = float(_evolution(x_new, x_full, eps))
+            cv, num_comp, rx, x_full, active, dif = solve_on(active_new,
+                                                              True)
             difs.append(dif)
             it += 1
-        x_full = x_new
 
-    if inexact_on and it > 0 and num_comp > 1:
-        # full-accuracy solve on the settled partition, refreshed from the
-        # post-merge active set (what the next CP iteration would see)
-        cv, num_comp, firsts, rgraph = contract(graph, active, eps)
-        rx = _chain_solve(op, obs, la_l1_dev, has_l1, vprox, opt, cv,
-                          num_comp, firsts, rgraph, x_full,
-                          opt.pfdr.it_max, opt.pfdr.it_max)
-        x_full = rx[cv.to(torch.int64)]
-        active = _device_merge(graph, x_full, active, eps, opt.dif_tol)
+    if uncertified:
+        # exactness guard: the chain's result is discarded
+        count("chain.fallbacks", 1)
+        warnings.warn(
+            "a chained PDHG cut exited uncertified; redoing the solve "
+            "through the per-iteration device path", UserWarning,
+            stacklevel=2)
+        return cp_quadratic_d1_device(
+            op, obs, graph, la_l1=la_l1, positivity=positivity,
+            bounds=bounds, opt=opt, state=state)
 
-    cv_host = cv.cpu().numpy().astype(np.int32)
-    rx_host = rx[:max(num_comp, 1)].cpu().numpy().astype(dtype)
-    active_host = active.cpu().numpy()
+    polish = inexact_on and it > 0 and num_comp > 1
+    with span("cp.polish") if polish else contextlib.nullcontext():
+        if polish:
+            # full-accuracy solve on the settled partition, refreshed from
+            # the post-merge active set (what the next CP iteration would
+            # see)
+            cv, num_comp, rx, x_full, active, _ = solve_on(
+                active, False, opt.pfdr.it_max, opt.pfdr.it_max)
+        cv_host = cv.cpu().numpy().astype(np.int32)
+        rx_host = rx[:max(num_comp, 1)].cpu().numpy().astype(dtype)
+        active_host = active.cpu().numpy()
     return CPResult(
         cv=cv_host, rx=rx_host, it=it,
         time=np.linspace(0.0, _time.monotonic() - t0, it + 1),

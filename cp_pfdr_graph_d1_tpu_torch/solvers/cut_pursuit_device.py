@@ -68,7 +68,7 @@ from ..ops.components_fused import (compact_labels_device,
 from ..ops.mincut_fused import device_cut_stencil_fused
 from ..ops.reduced_setup import metric_value
 from ..stencil import StencilGraphD1
-from ..utils.monitor import read_int
+from ..utils.monitor import count, read_floats, read_int, span
 from .cut_pursuit import (CPResult, CPState, _kernel_solve, _objective,
                           _reduce_dense, _reduce_diag, _reduce_gram,
                           reduced_dense)
@@ -453,11 +453,13 @@ def _host_duplex_fallback(graph: GraphD1, active, c1, c2, m):
 
 
 def _read_cuts(sep, checks, cut_tol: float):
-    """One host read of a round of cuts: ``(new separated edges,
-    certified)`` from ``sep`` and the cuts' ``[gap, big, ...]`` pairs."""
-    *gaps, n_new = torch.stack(
-        [v.to(torch.float64) for v in checks]
-        + [sep.sum().to(torch.float64)]).tolist()
+    """One host read of a round of cuts (span ``cp.device_cut.wait``):
+    ``(new separated edges, certified)`` from ``sep`` and the cuts'
+    ``[gap, big, ...]`` pairs."""
+    with span("cp.device_cut.wait"):
+        *gaps, n_new = read_floats(torch.stack(
+            [v.to(torch.float64) for v in checks]
+            + [sep.sum().to(torch.float64)]))
     return int(n_new), all(gap <= cut_tol * big
                            for gap, big in zip(gaps[::2], gaps[1::2]))
 
@@ -469,151 +471,177 @@ def cp_quadratic_d1_device(op: QuadOp, obs, graph: GraphD1, *,
                            monitor: bool = False,
                            state: CPState | None = None) -> CPResult:
     """Device-resident cut-pursuit solve (same contract as
-    :func:`.cut_pursuit.cp_quadratic_d1`); see the module docstring."""
+    :func:`.cut_pursuit.cp_quadratic_d1`); see the module docstring.
+
+    A traced solve (:mod:`..utils.monitor`) records ``cp.init``, then a
+    ``cp.iter`` an iteration with the children ``cp.device_cut`` (the cut
+    costs, the cuts and ``cp.device_cut.wait``, the read of their
+    certificates), ``cp.device_components`` (:func:`contract`),
+    ``cp.device_reduced`` (the reduced problem, its solve and the read of
+    its iterations) and ``cp.device_merge``; counters
+    ``reduced.launches``, ``reduced.iters`` and ``cut.uncertified`` (cuts
+    redone on the host)."""
     t0 = _time.monotonic()
-    num_v = graph.num_vertices
-    device = obs.device
-    dtype = numpy_dtype(obs.dtype)
-    la_l1_dev, has_l1, lo, hi, differentiable, vprox = problem_setup(
-        num_v, obs, la_l1, positivity, bounds)
-    eps = machine_eps(dtype, opt.dif_tol)
-    dif_tol2 = opt.dif_tol * opt.dif_tol
-    # reduced solves: one whole-solve kernel on a CUDA device (its plain
-    # version on the CPU with fused="on"), the staged loop otherwise
-    kernel_route = reduced_solve_route(opt.pfdr, obs.is_cuda) == "kernel"
+    with span("cp.init"):
+        num_v = graph.num_vertices
+        device = obs.device
+        dtype = numpy_dtype(obs.dtype)
+        la_l1_dev, has_l1, lo, hi, differentiable, vprox = problem_setup(
+            num_v, obs, la_l1, positivity, bounds)
+        eps = machine_eps(dtype, opt.dif_tol)
+        dif_tol2 = opt.dif_tol * opt.dif_tol
+        # reduced solves: one whole-solve kernel on a CUDA device (its plain
+        # version on the CPU with fused="on"), the staged loop otherwise
+        kernel_route = reduced_solve_route(opt.pfdr, obs.is_cuda) == "kernel"
 
-    if state is None:
-        x1 = scalar_init(op, obs, num_v, la_l1_dev, has_l1, positivity,
-                         bounds, lo, hi)
-        active = torch.zeros(graph.num_edges, dtype=torch.bool,
-                             device=device)
-        cv = torch.zeros(num_v, dtype=torch.int32, device=device)
-        x_full = torch.full((num_v,), x1, dtype=obs.dtype, device=device)
-    else:
-        active = torch.as_tensor(np.asarray(state.active, bool),
+        if state is None:
+            x1 = scalar_init(op, obs, num_v, la_l1_dev, has_l1, positivity,
+                             bounds, lo, hi)
+            active = torch.zeros(graph.num_edges, dtype=torch.bool,
                                  device=device)
-        cv = torch.as_tensor(np.asarray(state.cv, np.int32), device=device)
-        x_full = torch.as_tensor(np.asarray(state.rx, dtype)[state.cv],
+            cv = torch.zeros(num_v, dtype=torch.int32, device=device)
+            x_full = torch.full((num_v,), x1, dtype=obs.dtype, device=device)
+        else:
+            active = torch.as_tensor(np.asarray(state.active, bool),
+                                     device=device)
+            cv = torch.as_tensor(np.asarray(state.cv, np.int32),
                                  device=device)
+            x_full = torch.as_tensor(np.asarray(state.rx, dtype)[state.cv],
+                                     device=device)
 
-    def mon_objective(x):
-        return float(_objective(op, obs, x, graph,
-                                la_l1_dev if has_l1 else None))
+        def mon_objective(x):
+            return float(_objective(op, obs, x, graph,
+                                    la_l1_dev if has_l1 else None))
 
-    times = [0.0]
-    objs = [mon_objective(x_full)] if monitor else []
-    difs = []
-    x_prev = x_full
-    pfdr_it_prev = opt.pfdr.it_max
-    it = 0
-    dif = max(dif_tol2, 1.0)
-    num_comp = 1
-    # one duplex cut where the problem has two directions and no bounds
-    use_duplex = duplex and not differentiable and bounds is None
-    # PDHG warm starts: per direction, or the duplex cut's (x, z, zv)
-    cut1 = cut2 = (None, None)
-    dup = (None, None, None)
-    chk = min(250, opt.cut_it_max)
-    while it < opt.it_max and dif >= dif_tol2:
-        # -- steepest cut(s) (:337-549; duplex :470-545) ---------------------
-        if use_duplex:
-            d_costs = _duplex_costs(op, obs, graph, x_full, active,
-                                    la_l1_dev, has_l1=has_l1,
-                                    positivity=positivity)
-
-            def cuts(it_max):
-                nonlocal dup
-                sep, gap, big, *dup = _device_cut_duplex(
-                    graph, active, *d_costs, opt.cut_tol, it_max, chk, *dup)
-                return sep, [gap, big]
-        else:
-            c1, c2 = _direction_costs(op, obs, graph, x_full, active,
-                                      la_l1_dev, lo=lo, hi=hi,
-                                      differentiable=differentiable,
-                                      has_l1=has_l1, positivity=positivity)
-
-            def cuts(it_max):
-                nonlocal cut1, cut2
-                sep, gap1, big1, *cut1 = _device_cut(
-                    graph, active, c1, opt.cut_tol, it_max, chk, *cut1)
-                checks = [gap1, big1]
-                if not differentiable:
-                    sep2, gap2, big2, *cut2 = _device_cut(
-                        graph, active, c2, opt.cut_tol, it_max, chk, *cut2)
-                    checks += [gap2, big2]
-                    sep = sep | sep2
-                return sep, checks
-
-        sep, checks = cuts(opt.cut_it_max)
-        n_new, certified = _read_cuts(sep, checks, opt.cut_tol)
-        if not certified:
-            # continue the cuts from their own iterates
-            sep, checks = cuts(CONTINUE_FACTOR * opt.cut_it_max)
-            n_new, certified = _read_cuts(sep, checks, opt.cut_tol)
-        if not certified:
-            kind = "duplex cut" if use_duplex else "cut"
-            if obs.is_cuda:
-                raise RuntimeError(
-                    f"steepest {kind} uncertified after "
-                    f"{(1 + CONTINUE_FACTOR) * opt.cut_it_max} PDHG steps; "
-                    f"raise CPOptions.cut_it_max or cut_tol")
-            # exactness guard: redo this iteration's cuts on the host
-            warnings.warn(f"falling back to the host min-cut solver for this "
-                          f"{kind}", UserWarning, stacklevel=2)
-            sep = (_host_duplex_fallback(graph, active, *d_costs)
-                   if use_duplex else
-                   _host_cut_fallback(graph, active, c1,
-                                      None if differentiable else c2))
-            n_new = int(sep.sum())
-        active = active | sep
-        if n_new == 0:  # nothing to recompute (:556-563)
-            difs.append(0.0)
-            dif = 0.0
-            it += 1
-            times.append(_time.monotonic() - t0)
-            if monitor:
-                objs.append(objs[-1])
-            continue
-
-        # -- contraction (:568-661) -----------------------------------------
-        cv, num_comp, firsts, rgraph = contract(graph, active, eps)
-        rv_cap = rgraph.num_vertices
-        r_la_l1, rx0 = _reduce_vertex_terms(cv, x_full, la_l1_dev, firsts,
-                                            rv_cap)
-        r_op, mat, ry, lipsch = _reduced_problem(op, obs, cv, num_comp,
-                                                 rv_cap, pfdr_it_prev)
-
-        # -- reduced PFDR solve (:842-859) -----------------------------------
-        if kernel_route:
-            rx, it_d = _kernel_solve(
-                r_op, mat, ry, lipsch, rgraph,
-                r_la_l1 if has_l1 else None, rx0, num_comp, opt.pfdr.it_max,
-                vprox=vprox, rho=float(opt.pfdr.rho),
-                dif_tol=float(opt.pfdr.dif_tol))
-            pfdr_it_prev = max(read_int(it_d), 1)
-        else:
-            lipsch = metric_value(lipsch)
-            res = pfdr_quadratic_d1(
-                r_op, ry, rgraph, la_l1=r_la_l1 if has_l1 else None,
-                vprox=vprox, lipsch=lipsch, ltype=Lipsch.DIAG, x0=rx0,
-                opt=opt.pfdr)
-            rx = res.x
-            pfdr_it_prev = max(res.it, 1)
-        x_full = rx[cv.to(torch.int64)]
-
-        # -- merge + evolution (:863-975) ------------------------------------
-        active = _device_merge(graph, x_full, active, eps, opt.dif_tol)
-        dif = float(_evolution(x_full, x_prev, eps))
-        difs.append(dif)
+        times = [0.0]
+        objs = [mon_objective(x_full)] if monitor else []
+        difs = []
         x_prev = x_full
-        it += 1
-        times.append(_time.monotonic() - t0)
-        if monitor:
-            objs.append(mon_objective(x_full))
-        if opt.verbose:
-            print(f"CP it {it} (device): {num_comp} components, "
-                  f"{int(active.sum())} active edges, dif {dif:.3g}, "
-                  f"PFDR it {pfdr_it_prev}")
+        pfdr_it_prev = opt.pfdr.it_max
+        it = 0
+        dif = max(dif_tol2, 1.0)
+        num_comp = 1
+        # one duplex cut where the problem has two directions and no bounds
+        use_duplex = duplex and not differentiable and bounds is None
+        # PDHG warm starts: per direction, or the duplex cut's (x, z, zv)
+        cut1 = cut2 = (None, None)
+        dup = (None, None, None)
+        chk = min(250, opt.cut_it_max)
+    while it < opt.it_max and dif >= dif_tol2:
+        with span("cp.iter"):
+            # -- steepest cut(s) (:337-549; duplex :470-545) -----------------
+            with span("cp.device_cut"):
+                if use_duplex:
+                    d_costs = _duplex_costs(op, obs, graph, x_full, active,
+                                            la_l1_dev, has_l1=has_l1,
+                                            positivity=positivity)
+
+                    def cuts(it_max):
+                        nonlocal dup
+                        sep, gap, big, *dup = _device_cut_duplex(
+                            graph, active, *d_costs, opt.cut_tol, it_max,
+                            chk, *dup)
+                        return sep, [gap, big]
+                else:
+                    c1, c2 = _direction_costs(
+                        op, obs, graph, x_full, active, la_l1_dev, lo=lo,
+                        hi=hi, differentiable=differentiable, has_l1=has_l1,
+                        positivity=positivity)
+
+                    def cuts(it_max):
+                        nonlocal cut1, cut2
+                        sep, gap1, big1, *cut1 = _device_cut(
+                            graph, active, c1, opt.cut_tol, it_max, chk,
+                            *cut1)
+                        checks = [gap1, big1]
+                        if not differentiable:
+                            sep2, gap2, big2, *cut2 = _device_cut(
+                                graph, active, c2, opt.cut_tol, it_max, chk,
+                                *cut2)
+                            checks += [gap2, big2]
+                            sep = sep | sep2
+                        return sep, checks
+
+                sep, checks = cuts(opt.cut_it_max)
+                n_new, certified = _read_cuts(sep, checks, opt.cut_tol)
+                if not certified:
+                    # continue the cuts from their own iterates
+                    sep, checks = cuts(CONTINUE_FACTOR * opt.cut_it_max)
+                    n_new, certified = _read_cuts(sep, checks, opt.cut_tol)
+                if not certified:
+                    kind = "duplex cut" if use_duplex else "cut"
+                    count("cut.uncertified", len(checks) // 2)
+                    if obs.is_cuda:
+                        raise RuntimeError(
+                            f"steepest {kind} uncertified after "
+                            f"{(1 + CONTINUE_FACTOR) * opt.cut_it_max} PDHG "
+                            f"steps; raise CPOptions.cut_it_max or cut_tol")
+                    # exactness guard: redo this iteration's cuts on the host
+                    warnings.warn(f"falling back to the host min-cut solver "
+                                  f"for this {kind}", UserWarning,
+                                  stacklevel=2)
+                    sep = (_host_duplex_fallback(graph, active, *d_costs)
+                           if use_duplex else
+                           _host_cut_fallback(graph, active, c1,
+                                              None if differentiable
+                                              else c2))
+                    n_new = int(sep.sum())
+                active = active | sep
+            if n_new == 0:  # nothing to recompute (:556-563)
+                difs.append(0.0)
+                dif = 0.0
+                it += 1
+                times.append(_time.monotonic() - t0)
+                if monitor:
+                    objs.append(objs[-1])
+                continue
+
+            # -- contraction (:568-661) -------------------------------------
+            with span("cp.device_components"):
+                cv, num_comp, firsts, rgraph = contract(graph, active, eps)
+            with span("cp.device_reduced"):
+                rv_cap = rgraph.num_vertices
+                r_la_l1, rx0 = _reduce_vertex_terms(cv, x_full, la_l1_dev,
+                                                    firsts, rv_cap)
+                r_op, mat, ry, lipsch = _reduced_problem(
+                    op, obs, cv, num_comp, rv_cap, pfdr_it_prev)
+
+                # -- reduced PFDR solve (:842-859) ---------------------------
+                if kernel_route:
+                    rx, it_d = _kernel_solve(
+                        r_op, mat, ry, lipsch, rgraph,
+                        r_la_l1 if has_l1 else None, rx0, num_comp,
+                        opt.pfdr.it_max, vprox=vprox,
+                        rho=float(opt.pfdr.rho),
+                        dif_tol=float(opt.pfdr.dif_tol))
+                    its = read_int(it_d)
+                else:
+                    lipsch = metric_value(lipsch)
+                    res = pfdr_quadratic_d1(
+                        r_op, ry, rgraph, la_l1=r_la_l1 if has_l1 else None,
+                        vprox=vprox, lipsch=lipsch, ltype=Lipsch.DIAG,
+                        x0=rx0, opt=opt.pfdr)
+                    rx, its = res.x, res.it
+                pfdr_it_prev = max(its, 1)
+                count("reduced.launches", 1)
+                count("reduced.iters", its)
+
+            # -- merge + evolution (:863-975) --------------------------------
+            with span("cp.device_merge"):
+                x_full = rx[cv.to(torch.int64)]
+                active = _device_merge(graph, x_full, active, eps,
+                                       opt.dif_tol)
+                dif = float(_evolution(x_full, x_prev, eps))
+                difs.append(dif)
+                x_prev = x_full
+                it += 1
+                times.append(_time.monotonic() - t0)
+                if monitor:
+                    objs.append(mon_objective(x_full))
+            if opt.verbose:
+                print(f"CP it {it} (device): {num_comp} components, "
+                      f"{int(active.sum())} active edges, dif {dif:.3g}, "
+                      f"PFDR it {pfdr_it_prev}")
 
     cv_host = cv.cpu().numpy().astype(np.int32)
     _, reps = np.unique(cv_host, return_index=True)

@@ -180,6 +180,14 @@ class Tracer:
         s = self._local.solve
         if s is None or not s.on_device:
             return int(t)
+        return _read_counters(s, t.reshape(1).to(torch.int64))[0]
+
+    def read_floats(self, t) -> list:
+        """``t.tolist()`` of a 1-D float64 tensor; in a traced solve the
+        device counters not read yet come with it, in the same copy."""
+        s = self._local.solve
+        if s is None or not s.on_device:
+            return t.tolist()
         return _read_counters(s, t)
 
     def _open_solve(self):
@@ -234,18 +242,20 @@ class Tracer:
         return out
 
 
-def _read_counters(s: _Solve, t=None):
-    """Adds the solve's device counters to its counters in one read, with
-    ``t`` first when given; returns ``int(t)``."""
-    vals = [v.reshape(()).to(torch.int64) for _, v in s.on_device]
-    if t is not None:
-        vals.insert(0, t.reshape(()).to(torch.int64))
-    vals = torch.stack(vals).tolist()
-    first = vals.pop(0) if t is not None else None
-    for (name, _), v in zip(s.on_device, vals):
-        s.counters[name] = s.counters.get(name, 0) + v
+def _read_counters(s: _Solve, head=None) -> list:
+    """Adds the solve's device counters to its counters in one read, after
+    the 1-D tensor ``head`` when given (in its type); returns ``head``'s
+    values."""
+    dtype = torch.int64 if head is None else head.dtype
+    vals = [v.reshape(1).to(dtype) for _, v in s.on_device]
+    n = 0 if head is None else head.numel()
+    if head is not None:
+        vals.insert(0, head.reshape(-1))
+    vals = torch.cat(vals).tolist()
+    for (name, _), v in zip(s.on_device, vals[n:]):
+        s.counters[name] = s.counters.get(name, 0) + int(v)
     s.on_device.clear()
-    return first
+    return vals[:n]
 
 
 _TRACER = Tracer()
@@ -253,6 +263,7 @@ span = _TRACER.span
 count = _TRACER.count
 count_device = _TRACER.count_device
 read_int = _TRACER.read_int
+read_floats = _TRACER.read_floats
 trace_records = _TRACER.records
 
 

@@ -1,5 +1,6 @@
 """The port's tracer (``utils.monitor``): the spans and counters a host-cut
-solve records while a ``torch.profiler`` records, none without one, a new
+solve and a device-route solve (the chained and per-iteration device
+loops) record while a ``torch.profiler`` records, none without one, a new
 buffer for a new session, the benchmark's readers of those records, and
 the port names the benchmark's traced runs wrap.  On the CPU; the clock
 test runs on the card only (``-m card``)."""
@@ -95,6 +96,29 @@ def parent_name(rec, s):
     return None if s["parent"] is None else rec["spans"][s["parent"]]["name"]
 
 
+def assert_nested_and_covered(rec):
+    """A span lies inside its parent and after its elder sibling, its self
+    time is its time less its children's, and the API's inputs and
+    ``cp.solve``'s children cover 95 % of the solve."""
+    spans = rec["spans"]
+    last_end = {}
+    for s in spans:
+        assert s["start_ns"] <= s["end_ns"]
+        lo, hi = ((rec["start_ns"], rec["end_ns"]) if s["parent"] is None
+                  else (spans[s["parent"]]["start_ns"],
+                        spans[s["parent"]]["end_ns"]))
+        assert lo <= s["start_ns"] and s["end_ns"] <= hi
+        assert s["start_ns"] >= last_end.get(s["parent"], lo)
+        last_end[s["parent"]] = s["end_ns"]
+    for k, s in enumerate(spans):
+        kids = sum(c["total_ns"] for c in spans if c["parent"] == k)
+        assert s["self_ns"] == s["total_ns"] - kids
+    solve_k = next(k for k, s in enumerate(spans) if s["name"] == "cp.solve")
+    covered = sum(s["total_ns"] for s in spans
+                  if s["parent"] == solve_k or s["name"] == "api.inputs")
+    assert covered >= 0.95 * rec["total_ns"]
+
+
 @pytest.mark.parametrize("fused", ["on", "off"])
 def test_a_traced_solve_records_its_span_tree_and_counters(monkeypatch,
                                                            fused):
@@ -116,24 +140,7 @@ def test_a_traced_solve_records_its_span_tree_and_counters(monkeypatch,
     pairs = {(s["name"], parent_name(rec, s)) for s in spans}
     assert pairs == TREE | (KERNEL_ONLY if fused == "on" else set())
     assert sum(1 for s in spans if s["name"] == "cp.iter") == out.it
-    # nesting: a span lies inside its parent and after its elder sibling
-    last_end = {}
-    for s in spans:
-        assert s["start_ns"] <= s["end_ns"]
-        lo, hi = ((rec["start_ns"], rec["end_ns"]) if s["parent"] is None
-                  else (spans[s["parent"]]["start_ns"],
-                        spans[s["parent"]]["end_ns"]))
-        assert lo <= s["start_ns"] and s["end_ns"] <= hi
-        assert s["start_ns"] >= last_end.get(s["parent"], lo)
-        last_end[s["parent"]] = s["end_ns"]
-    for k, s in enumerate(spans):
-        kids = sum(c["total_ns"] for c in spans if c["parent"] == k)
-        assert s["self_ns"] == s["total_ns"] - kids
-    # the solve is covered by the API's inputs and cp.solve's children
-    solve_k = next(k for k, s in enumerate(spans) if s["name"] == "cp.solve")
-    covered = sum(s["total_ns"] for s in spans
-                  if s["parent"] == solve_k or s["name"] == "api.inputs")
-    assert covered >= 0.95 * rec["total_ns"]
+    assert_nested_and_covered(rec)
     # counters: one launch per reduced solve the loop ran (the iterations
     # that activated edges, then the polish), with the iterations each
     # handed back
@@ -190,6 +197,112 @@ def test_spans_and_counters_outside_a_solve_are_no_ops():
         with monitor.span("cp.cut"):
             monitor.count("h2d.bytes", 8)
     assert monitor.trace_records() == before
+
+
+# -- the device routes (cut="device") ----------------------------------------
+
+# (span, parent) pairs the device routes add; the reduced solve's own spans
+# (cp.reduced.*) sit under cp.device_reduced
+DEVICE_TREE = {
+    "off": {("api.inputs", None), ("cp.solve", None),
+            ("cp.init", "cp.solve"), ("cp.iter", "cp.solve"),
+            ("cp.device_cut", "cp.iter"),
+            ("cp.device_cut.wait", "cp.device_cut"),
+            ("cp.device_components", "cp.iter"),
+            ("cp.device_reduced", "cp.iter"),
+            ("cp.device_merge", "cp.iter")},
+    "on": {("cp.warm", "cp.solve"), ("cp.settle", "cp.solve"),
+           ("cp.device_components", "cp.settle"),
+           ("cp.device_reduced", "cp.settle"),
+           ("cp.device_merge", "cp.settle"), ("cp.polish", "cp.solve"),
+           ("cp.device_components", "cp.polish"),
+           ("cp.device_reduced", "cp.polish"),
+           ("cp.device_merge", "cp.polish")}}
+DEVICE_TREE["on"] |= DEVICE_TREE["off"]
+
+
+def stencil_solve(prob, **kw):
+    """The grid problem on a stencil graph (the kernels' container) through
+    the API's device route."""
+    from cp_pfdr_graph_d1_tpu_torch import StencilGraphD1
+    _, _, _, a, y, la_l1 = prob
+    g = StencilGraphD1.create((H, W), {(0, 1): 0.05, (1, 0): 0.05},
+                              dtype=torch.float32, device="cpu")
+    return api.cp_quadratic_d1_l1(y, a, None, None, None, la_l1, graph=g,
+                                  cut="device", **dict(SOLVE_KW, **kw))
+
+
+@pytest.mark.parametrize("chain", ["on", "off"])
+def test_a_traced_device_solve_records_its_span_tree_and_counters(chain):
+    out, recs = traced(lambda: stencil_solve(problem(), chain=chain))
+    assert len(recs) == 1
+    rec = recs[0]
+    spans = rec["spans"]
+    pairs = {(s["name"], parent_name(rec, s)) for s in spans}
+    device = {p for p in pairs if not p[0].startswith("cp.reduced")}
+    assert device == DEVICE_TREE[chain]
+    assert {p[1] for p in pairs - device} == {"cp.device_reduced"}
+    assert sum(1 for s in spans if s["name"] == "cp.iter") == out.it
+    assert_nested_and_covered(rec)
+
+    def n_spans(name):
+        return sum(1 for s in spans if s["name"] == name)
+    c = rec["counters"]
+    # two cuts a round (positivity: both directions), each whole chunks of
+    # min(250, cut_it_max) PDHG steps
+    assert c["mincut.launches"] == 2 * n_spans("cp.device_cut")
+    assert c["mincut.steps"] % 250 == 0
+    assert c["mincut.steps"] >= 250 * c["mincut.launches"]
+    assert c["reduced.launches"] == n_spans("cp.device_reduced") > 0
+    assert c["reduced.iters"] >= c["reduced.launches"]
+    assert ("warm.components" in c) == (chain == "on")
+    assert c.get("warm.components", 1) >= 1
+    assert "cut.uncertified" not in c and "chain.fallbacks" not in c
+    assert rec["dropped_spans"] == 0
+
+
+def test_a_discarded_chain_and_a_host_redone_cut_are_counted():
+    """A cut capped at one PDHG step never certifies: the chain discards
+    itself, the device loop continues the cut, then redoes it on the host
+    (CPU tensors), and the counters say so."""
+    import warnings
+    from cp_pfdr_graph_d1_tpu_torch import (CPOptions, DenseOp, PFDROptions,
+                                            StencilGraphD1)
+    _, _, _, a, y, la_l1 = problem(5)
+    g = StencilGraphD1.create((H, W), {(0, 1): 0.05, (1, 0): 0.05},
+                              dtype=torch.float32, device="cpu")
+    opt = CPOptions(dif_tol=1e-4, it_max=3, cut="device", chain="on",
+                    cut_it_max=1, pfdr=PFDROptions(rho=1.5, it_max=300))
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        out, recs = traced(lambda: cut_pursuit.cp_quadratic_d1(
+            DenseOp(torch.from_numpy(a)), torch.from_numpy(y), g,
+            la_l1=la_l1, positivity=True, opt=opt))
+    messages = " ".join(str(w.message) for w in caught)
+    assert "chained PDHG cut" in messages and "host min-cut" in messages
+    c = recs[0]["counters"]
+    assert c["chain.fallbacks"] == 1
+    assert c["cut.uncertified"] >= 2 and c["cut.uncertified"] % 2 == 0
+    assert out.it >= 1
+
+
+@pytest.mark.parametrize("chain", ["on", "off"])
+def test_device_routes_record_and_read_nothing_without_a_profiler(
+        monkeypatch, chain):
+    """Untraced, the device routes' spans and counters are the shared
+    no-ops and no device counter is read: the tracer's counter read never
+    runs."""
+    prob = problem(6)
+    _, recs = traced(lambda: stencil_solve(prob, chain=chain, CP_itMax=2))
+    assert len(recs) == 1
+
+    def no_read(*args):
+        raise AssertionError("an untraced solve read a device counter")
+    monkeypatch.setattr(monitor, "_read_counters", no_read)
+    out = stencil_solve(prob, chain=chain, CP_itMax=2)
+    assert out.it > 0
+    again = monitor.trace_records()
+    assert [r["solve"] for r in again] == [recs[0]["solve"]]
 
 
 # -- the benchmark's readers of the records ----------------------------------
@@ -250,6 +363,49 @@ def test_readers_read_the_records(monkeypatch):
     run.traced_solves = 3
     names = ("host_cut_ms", "contraction_ms", "reduced_setup_ms",
              "reduced_iters", "hd_mb")
+    assert all(reader(n)(run) is None for n in names)
+    monkeypatch.setattr(monitor, "trace_records", list)
+    assert all(reader(n)(FakeRun()) is None for n in names)
+    monkeypatch.delattr(monitor, "trace_records")
+    assert all(reader(n)(FakeRun()) is None for n in names)
+
+
+def device_records():
+    """Two device-route solves, the first with a warm partition."""
+    def rec(spans, counters):
+        out = [dict(name=name, parent=parent, start_ns=t0, end_ns=t1,
+                    total_ns=t1 - t0, self_ns=0)
+               for name, parent, t0, t1 in spans]
+        return dict(solve=0, start_ns=0, end_ns=10**9, total_ns=10**9,
+                    self_ns=0, counters=counters, dropped_spans=0,
+                    spans=out)
+    one = rec([("cp.solve", None, 0, 900_000_000),
+               ("cp.warm", 0, 0, 300_000_000),
+               ("cp.iter", 0, 300_000_000, 600_000_000),
+               ("cp.device_cut", 2, 300_000_000, 400_000_000),
+               ("cp.device_cut.wait", 3, 350_000_000, 400_000_000),
+               ("cp.iter", 0, 600_000_000, 900_000_000),
+               ("cp.device_cut", 5, 600_000_000, 650_000_000)],
+              {"mincut.launches": 4, "mincut.steps": 3000})
+    two = rec([("cp.solve", None, 0, 100_000_000),
+               ("cp.iter", 0, 0, 100_000_000),
+               ("cp.device_cut", 1, 0, 50_000_000)],
+              {"mincut.launches": 2, "mincut.steps": 1000})
+    return [one, two]
+
+
+def test_device_readers_read_the_records(monkeypatch):
+    monkeypatch.setattr(monitor, "trace_records", device_records)
+    run = FakeRun()
+    assert reader("warm_ms")(run) == pytest.approx(150.0)
+    assert reader("device_cut_ms")(run) == pytest.approx(100.0)
+    assert reader("pdhg_steps")(run) == pytest.approx(4000 / 6)
+    names = ("warm_ms", "device_cut_ms", "pdhg_steps")
+    # the host route's records hold none of their spans and counters
+    monkeypatch.setattr(monitor, "trace_records", hand_records)
+    assert all(reader(n)(run) is None for n in names)
+    monkeypatch.setattr(monitor, "trace_records", device_records)
+    run.traced_solves = 3
     assert all(reader(n)(run) is None for n in names)
     monkeypatch.setattr(monitor, "trace_records", list)
     assert all(reader(n)(FakeRun()) is None for n in names)
