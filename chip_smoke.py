@@ -456,10 +456,12 @@ def block_partition(eu, ev, la, rows=8, cols=16):
                                    1e-16)
 
 
-def small_inputs(kind, cv, rg, dtype, device, sort_edges=False):
+def small_inputs(kind, cv, rg, dtype, device, sort_edges=False,
+                 rv_cap=None):
     """Kernel inputs of one reduced problem, prepared as the cut-pursuit
     route prepares them (``_reduce_solve_small``; ``sort_edges`` for
-    ``solve_fused``)."""
+    ``solve_fused``), padded to ``rv_cap`` vertices (the host loop's
+    ``max(bucket, 128)`` by default)."""
     import torch
     from cp_pfdr_graph_d1_tpu_torch import GraphD1, VertexProx
     from cp_pfdr_graph_d1_tpu_torch.operators import DenseOp, DiagOp, GramOp
@@ -469,7 +471,7 @@ def small_inputs(kind, cv, rg, dtype, device, sort_edges=False):
     a, y = build_grid_problem()
     t = lambda z: torch.as_tensor(z, dtype=dtype, device=device)  # noqa
     num_comp = rg.num_components
-    rv_cap = max(bucket(num_comp), 128)
+    rv_cap = rv_cap or max(bucket(num_comp), 128)
     reu, rev, rla = pad_reduced_graph(rg, rv_cap, max(bucket(len(rg.eu)),
                                                       128))
     g = GraphD1.create(reu, rev, rla, num_vertices=rv_cap, dtype=dtype,
@@ -540,7 +542,9 @@ def phase_solve_small(device="cuda"):
             tol = F64_TOL if dtype == torch.float64 else F32_TOL
             rv_cap = args[5].shape[0]
             n_rows = args[1].shape[0] if kind == "dense" else 0
-            c = cluster or ss.cluster_size(kind, rv_cap, n_rows, dtype)
+            c = ss.launch_shape(kind, rv_cap, n_rows, dtype, cluster,
+                                args[8].shape[0])[0]
+            c = "resident" if c == ss.RESIDENT else c
             name = f"solve_small {kind} rv={rv} {dtype} C={c}"
             check(int(itk) == int(itp), f"{name}: it {int(itk)} vs plain "
                   f"{int(itp)}")
@@ -564,7 +568,98 @@ def phase_solve_small(device="cuda"):
                 line += (f"; {kw['it_max']} iterations: kernel "
                          f"{ms:.3f} ms, plain {plain_ms:.3f} ms")
             print(line, flush=True)
+    times["resident"] = resident_turns(device)
     return errs, times
+
+
+# the cells' reduced shapes, as (operator, block rows, block columns,
+# rv_cap): the host cut's premultiplied operator at rv_cap 128 (8 to 64
+# components), the chain's dense one of 91 rows at rv_cap bucket(rv) (16
+# to 100 components), the diagonal one
+RESIDENT_SHAPES = (("gram", 2, 4, 128), ("gram", 4, 4, 128),
+                   ("gram", 4, 8, 128), ("gram", 8, 8, 128),
+                   ("dense", 4, 4, 16), ("dense", 5, 5, 32),
+                   ("dense", 6, 8, 64), ("dense", 10, 10, 128),
+                   ("diag", 4, 8, 128))
+# iterations of a timed resident / one-block launch (no evolution stop)
+RESIDENT_ITERS = 3000
+
+
+def resident_turns(device="cuda"):
+    """The resident schedule against the one-block schedule on the cells'
+    shapes (``RESIDENT_SHAPES``, block partitions of the EEG grid problem):
+    ``x``, ``z``, iterations and evolution bit-equal in float64 (stopping on
+    the evolution test) and float32 (``RESIDENT_ITERS`` iterations), and
+    in float32 the microseconds an iteration of both, by CUDA events over
+    whole calls in turns (one block, resident, resident, one block) and by
+    torch.profiler's device time of the kernel.  Returns
+    ``{(kind, rv, rv_cap): {schedule: us an iteration}}``."""
+    import torch
+    from cp_pfdr_graph_d1_tpu_torch.graph import incidence_csr
+    from cp_pfdr_graph_d1_tpu_torch.ops import solve_small as ss
+    _, _, eu, ev, la = first_cut_partition()
+    table = {}
+    for kind, rows, cols, rv_cap in RESIDENT_SHAPES:
+        cv, rg = block_partition(eu, ev, la, rows, cols)
+        for dtype in (torch.float64, torch.float32):
+            args, rv = small_inputs(kind, cv, rg, dtype, device,
+                                    rv_cap=rv_cap)
+            n_rows = args[1].shape[0] if kind == "dense" else 0
+            ne = args[8].shape[0]
+            kw = solve_kw(dtype, rv)
+            if dtype == torch.float32:
+                kw["it_max"] = RESIDENT_ITERS
+            kw["incidence"] = incidence_csr(args[8], args[9], rv_cap)
+            pick = ss.launch_shape(kind, rv_cap, n_rows, dtype, ne=ne)[0]
+            name = (f"{str(dtype)[6:]} {kind} rv={rv} rv_cap={rv_cap} "
+                    f"e={ne}")
+            if pick != ss.RESIDENT:
+                print(f"[resident] {name}: not resident (C={pick})",
+                      flush=True)
+                continue
+            one = ss._solve(1, *args, **kw)
+            res = ss._solve(ss.RESIDENT, *args, **kw)
+            for field, a, b in zip(("x", "z", "it", "dif"), res, one):
+                check(torch.equal(a, b), f"resident {name}: {field} differs "
+                      f"from the one-block schedule's (max "
+                      f"{max_err(a, b):.3g})")
+            line = (f"[resident] {name}: bit-equal to one block, it="
+                    f"{int(res[2])}")
+            if dtype == torch.float32:
+                fn = {c: (lambda c=c: ss._solve(c, *args, **kw))
+                      for c in (1, ss.RESIDENT)}
+                t = {1: [], ss.RESIDENT: []}
+                for c in (1, ss.RESIDENT, ss.RESIDENT, 1):
+                    t[c].append(cuda_ms(fn[c], 5) * 1e3 / RESIDENT_ITERS)
+                dev = {c: device_profile(fn[c], 5)[0] / RESIDENT_ITERS
+                       for c in (1, ss.RESIDENT)}
+                row = {"one_block": min(t[1]), "resident": min(
+                    t[ss.RESIDENT]), "one_block_device": dev[1],
+                    "resident_device": dev[ss.RESIDENT],
+                    "threads": ss.resident_threads(rv_cap, ne)}
+                line += (f"; us an iteration by events: one block "
+                         f"{'/'.join(f'{v:.3f}' for v in t[1])}, resident "
+                         f"{'/'.join(f'{v:.3f}' for v in t[ss.RESIDENT])}; "
+                         f"device: one block {dev[1]:.3f}, resident "
+                         f"{dev[ss.RESIDENT]:.3f} ({row['threads']} "
+                         f"threads)")
+                table[(kind, rv, rv_cap)] = row
+            print(line + f" ({CARD})", flush=True)
+    return table
+
+
+def solve_small_only():
+    """``python3 chip_smoke.py --solve-small``: the ``solve_small`` phase
+    alone (``phase_solve_small``, with the resident schedule's turns)."""
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    phase_env()
+    phase_build()
+    errs, times = phase_solve_small()
+    print(json.dumps({"solve_small": {
+        "max_err": {str(k)[6:]: v for k, v in errs.items()},
+        "resident_us_an_iteration": {
+            f"{k[0]} rv={k[1]} rv_cap={k[2]}": v
+            for k, v in times["resident"].items()}}}), flush=True)
 
 
 # the reduced-solve set-up's cases: the operator routes of the host cut
@@ -992,8 +1087,8 @@ def eeg_reduced_solves(device="cuda"):
     _, rec = record_reduced_solves(
         lambda: run_cp(g, a, y, np.float32, device))
     for k, r in enumerate(rec):
-        r["cluster"] = (ss.cluster_size(r["kind"], r["rv_cap"], r["n_rows"],
-                                        r.pop("dtype"))
+        r["cluster"] = (ss.launch_shape(r["kind"], r["rv_cap"], r["n_rows"],
+                                        r.pop("dtype"), ne=r["e"])[0]
                         if r["route"] == "solve_small" else None)
         print(f"[cp] reduced solve {k}: rv={r['rv']} rv_cap={r['rv_cap']} "
               f"e={r['e']} {r['kind']} {r['route']}"
@@ -5730,6 +5825,8 @@ if __name__ == "__main__":
         reduced_options_only()
     elif sys.argv[1:] == ["--reduced-setup"]:
         reduced_setup_only()
+    elif sys.argv[1:] == ["--solve-small"]:
+        solve_small_only()
     elif len(sys.argv) == 3 and sys.argv[1] == "--banded-parent":
         banded_parent_only(sys.argv[2])
     else:

@@ -9,14 +9,21 @@ VMEM; the Hopper kernel uses indexed loads and a per-vertex incidence list
 instead, so its only size limit is shared memory (:func:`fits`).  It runs
 in one block, or as a thread-block cluster of ``C`` CTAs that share the
 vertices, the edges and the operator (:func:`cluster_size` picks ``C``;
-:func:`smem_bytes` counts each CTA's shared memory).  The TPU-only devices
+:func:`smem_bytes` counts each CTA's shared memory).  A problem of the
+one-block class whose whole state fits one CTA's shared memory
+(:func:`resident_smem_bytes`) runs on the *resident* schedule instead: one
+CTA that loads the operator's live part, the edges and the duals once and
+writes global memory only at the end, with the one-block schedule's
+iterates and iteration count bit for bit (:func:`launch_shape` picks it
+by shape).  The TPU-only devices
 (the ``split3`` bf16 dots, ``[8, 128]`` lane padding, VMEM budgets) are
 gone.
 
 :func:`fused_pfdr_solve_small` launches the kernel for tensors on a CUDA
 device and runs :func:`solve_small_plain` for tensors on the CPU; there is
 no other fallback.  Each launch adds one to
-``fused_pfdr_solve_small.launches``.
+``fused_pfdr_solve_small.launches``, and each resident launch one to the
+traced solve's ``reduced.resident`` counter.
 """
 from __future__ import annotations
 
@@ -27,6 +34,7 @@ import torch
 
 from .. import _build
 from ..graph import csr_table, incidence_csr
+from ..utils.monitor import count
 from .prox import vertex_prox_plain
 
 # opt-in dynamic shared memory of one Hopper block (232,448 bytes), less
@@ -46,6 +54,15 @@ CLUSTER_SIZES = (1, 2, 4, 8, 16)
 # float32), 16 CTAs from rv_cap 1024 (373 KB) and the Gram rv_cap 256 one
 # (256 KB) on, and more CTAs do better up to 16
 CLUSTER_MIN_OP_BYTES = 256 * 1024
+# the ``cluster`` value of the resident schedule: one CTA of
+# :func:`resident_threads` threads holding the whole solve in shared memory
+# and registers
+RESIDENT = 0
+# its most threads (kResidentMaxThreads): a thread a vertex and an edge,
+# then one warp for the evolution sums; the rows of its products' batches
+# (kResidentBatch)
+RESIDENT_MAX_THREADS = 512
+RESIDENT_BATCH = 8
 
 
 def _itemsize(dtype) -> int:
@@ -78,6 +95,54 @@ def smem_bytes(rv_cap: int, n_rows: int, itemsize: int, cluster: int = 1,
     if op_in_smem:
         n += n_op * cs
     return itemsize * n + 4 * (cs + 1)
+
+
+def _round_up(n: int, m: int) -> int:
+    return -(-n // m) * m
+
+
+def resident_op_rows(op_kind: str, rv_cap: int, n_rows: int) -> int:
+    """Rows of the operator the resident schedule holds, padded to
+    ``RESIDENT_BATCH``: A's ``n_rows``, the Gram matrix's live rows (at
+    most ``rv_cap``), none for the diagonal (``resident_op_rows`` in
+    ``csrc/solve_small.cu``)."""
+    if op_kind == "diag":
+        return 0
+    return _round_up(n_rows if op_kind == "dense" else rv_cap,
+                     RESIDENT_BATCH)
+
+
+def resident_smem_bytes(op_kind: str, rv_cap: int, n_rows: int, ne: int,
+                        itemsize: int) -> int:
+    """Dynamic shared memory of the resident schedule (must match
+    ``resident_smem_bytes`` in ``csrc/solve_small.cu``): the operator's
+    live part transposed (``cap32`` columns, the vertices rounded up to
+    32, each of :func:`resident_op_rows` rounded up to 128 bytes and 16
+    bytes more), the iterate (``cap32``), ``A x`` (the dense A's padded
+    rows), the forward values, the edge terms (``2 ne``) and the per-warp
+    sums.  The edges' rows live in registers."""
+    n_op = resident_op_rows(op_kind, rv_cap, n_rows)
+    n_r = n_op if op_kind == "dense" else 0
+    cap32 = _round_up(rv_cap, 32)
+    stride = _round_up(n_op, 128 // itemsize) + 16 // itemsize
+    op_vals = cap32 * stride if n_op else 0
+    return itemsize * (op_vals + cap32 + rv_cap + n_r + 2 * ne + 64)
+
+
+def resident_threads(rv_cap: int, ne: int) -> int:
+    """Threads of a resident launch: a thread a vertex and an edge,
+    rounded up to a warp, then one warp for the evolution sums."""
+    return 32 * -(-max(rv_cap, ne) // 32) + 32
+
+
+def resident_fits(op_kind: str, rv_cap: int, n_rows: int, ne: int,
+                  dtype) -> bool:
+    """Whether the resident schedule takes a problem: its threads within
+    ``RESIDENT_MAX_THREADS`` and its state within one CTA's shared
+    memory."""
+    return (resident_threads(rv_cap, ne) <= RESIDENT_MAX_THREADS
+            and resident_smem_bytes(op_kind, rv_cap, n_rows, ne,
+                                    _itemsize(dtype)) <= MAX_SMEM_BYTES)
 
 
 def fits(rv_cap: int, n_rows: int, dtype) -> bool:
@@ -113,18 +178,33 @@ def cluster_size(op_kind: str, rv_cap: int, n_rows: int, dtype) -> int:
 
 
 def launch_shape(op_kind: str, rv_cap: int, n_rows: int, dtype,
-                 cluster: int | None = None):
+                 cluster: int | None = None, ne: int | None = None):
     """``(cluster, op_in_smem, smem bytes)`` of a launch: the cluster
     :func:`cluster_size` picks, or ``cluster`` when given (a cluster takes
-    the dense and Gram operators)."""
-    c = cluster_size(op_kind, rv_cap, n_rows, dtype) if cluster is None \
-        else cluster
+    the dense and Gram operators).  Where that is one block and the
+    problem of ``ne`` edges fits the resident schedule
+    (:func:`resident_fits`), the resident one (``RESIDENT``, the operator
+    in shared memory); ``cluster=RESIDENT`` forces it."""
+    n = n_rows if op_kind == "dense" else 0
+    if cluster is None:
+        c = cluster_size(op_kind, rv_cap, n_rows, dtype)
+        if c == 1 and ne is not None and resident_fits(op_kind, rv_cap, n,
+                                                       ne, dtype):
+            c = RESIDENT
+    else:
+        c = cluster
+    if c == RESIDENT:
+        if ne is None or not resident_fits(op_kind, rv_cap, n, ne, dtype):
+            raise ValueError(f"the resident schedule does not take the "
+                             f"{op_kind} operator at rv_cap={rv_cap}, "
+                             f"n_rows={n}, {ne} edges in {dtype}")
+        return RESIDENT, True, resident_smem_bytes(op_kind, rv_cap, n, ne,
+                                                   _itemsize(dtype))
     if c not in CLUSTER_SIZES or c > rv_cap or (c > 1 and op_kind == "diag"):
         raise ValueError(f"cluster of {c} CTAs for the {op_kind} operator; "
                          f"the kernel takes {CLUSTER_SIZES}, at most "
                          f"rv_cap={rv_cap}, and one block for 'diag'")
     if c == 1:
-        n = n_rows if op_kind == "dense" else 0
         return 1, False, smem_bytes(rv_cap, n, _itemsize(dtype))
     return (c, *_cluster_smem(op_kind, rv_cap, n_rows, dtype, c))
 
@@ -184,13 +264,15 @@ def _lib():
             fn.restype = i
             fn.argtypes = ([i, ptr, i] + [ptr] * 11
                            + [i, i, i, i, d, i, i, d, d, d, d]
-                           + [ptr] * 5 + [i, i, ptr])
+                           + [ptr] * 5 + [i, i, i, ptr])
         lib.cp_solve_small_smem_bytes.restype = ctypes.c_size_t
         lib.cp_solve_small_smem_bytes.argtypes = [i, i, i]
         lib.cp_solve_small_cluster_smem_bytes.restype = ctypes.c_size_t
         lib.cp_solve_small_cluster_smem_bytes.argtypes = [i] * 5
         lib.cp_solve_small_max_cluster.restype = i
         lib.cp_solve_small_max_cluster.argtypes = []
+        lib.cp_solve_small_resident_smem_bytes.restype = ctypes.c_size_t
+        lib.cp_solve_small_resident_smem_bytes.argtypes = [i] * 5
         ok = (lib.cp_solve_small_smem_bytes(8, 100, 7)
               == smem_bytes(100, 7, 8)
               and lib.cp_solve_small_max_cluster() == CLUSTER_SIZES[-1])
@@ -199,6 +281,11 @@ def _lib():
                 ok = ok and lib.cp_solve_small_cluster_smem_bytes(
                     8, 100, 7, c, in_smem) == smem_bytes(
                         100, 7, 8, c, n_op=7, op_in_smem=in_smem)
+        for kind, code in _OP_KIND.items():
+            for item in (4, 8):
+                ok = ok and lib.cp_solve_small_resident_smem_bytes(
+                    item, code, 100, 7, 33) == resident_smem_bytes(
+                        kind, 100, 7 if kind == "dense" else 0, 33, item)
         if not ok:
             raise RuntimeError("smem_bytes disagrees with the CUDA source")
         lib._cp_small_declared = True
@@ -240,7 +327,7 @@ def _check(op_kind, op, vertex_rows, z0, ec, eu, ev, rv, size_limit=True,
     if not size_limit:
         return None
     n_rows = op.shape[0] if op_kind == "dense" else 0
-    shape = launch_shape(op_kind, rv_cap, n_rows, x0.dtype, cluster)
+    shape = launch_shape(op_kind, rv_cap, n_rows, x0.dtype, cluster, ne)
     if not fits(rv_cap, n_rows, x0.dtype) or shape[2] > MAX_SMEM_BYTES:
         need = max(shape[2], smem_bytes(rv_cap, n_rows, x0.element_size()))
         raise ValueError(
@@ -256,8 +343,8 @@ def fused_pfdr_solve_small(op_kind: str, op, aty, ga, th_l1, x0, z0, ec,
                            vkind: str, positivity: bool, lo: float,
                            hi: float, dif_tol2: float, eps: float,
                            incidence=None):
-    """Complete small-problem PFDR solve, on the cluster
-    :func:`cluster_size` picks.
+    """Complete small-problem PFDR solve, on the schedule
+    :func:`launch_shape` picks.
 
     Args:
       op_kind: "dense" (``op`` is ``A`` [N, rv_cap]), "gram" (``op`` is
@@ -268,7 +355,9 @@ def fused_pfdr_solve_small(op_kind: str, op, aty, ga, th_l1, x0, z0, ec,
       z0: [2, E] initial auxiliary pairs (zu; zv).
       ec: [5, E] edge constants, rows (wu, wv, w_d1u, w_d1v, th_d1).
       eu, ev: [E] integer endpoints; padding edges carry zero weights.
-      rv: true vertex count; entries ``>= rv`` are held at zero.
+      rv: true vertex count; entries ``>= rv`` are held at zero.  The
+        operator is zero in its rows and columns ``>= rv`` (the padding of
+        a contraction): the resident schedule skips them.
       it_max, dif_tol2, eps: iteration cap and evolution test, as in the
         PFDR loop.
       incidence: the edges' :func:`..graph.incidence_csr` on the device,
@@ -287,9 +376,10 @@ def fused_pfdr_solve_small(op_kind: str, op, aty, ga, th_l1, x0, z0, ec,
 
 def _solve(cluster, op_kind, op, aty, ga, th_l1, x0, z0, ec, eu, ev,
            incidence=None, **kw):
-    """:func:`fused_pfdr_solve_small` on a cluster of ``cluster`` CTAs, or
-    on the one :func:`cluster_size` picks for None: the forced size serves
-    the timing of each size against the others."""
+    """:func:`fused_pfdr_solve_small` on a cluster of ``cluster`` CTAs (or
+    the resident schedule, ``RESIDENT``), or on the schedule
+    :func:`launch_shape` picks for None: the forced schedule serves the
+    tests and the timing of each schedule against the others."""
     rv, vkind = kw["rv"], kw["vkind"]
     if not x0.is_cuda:
         return solve_small_plain(op_kind, op, aty, ga, th_l1, x0, z0, ec,
@@ -330,10 +420,14 @@ def _solve(cluster, op_kind, op, aty, ga, th_l1, x0, z0, ec, eu, ev,
                 int(kw["positivity"]), float(kw["lo"]), float(kw["hi"]),
                 float(kw["dif_tol2"]), float(kw["eps"]), xo.data_ptr(),
                 zo.data_ptr(), wz.data_ptr(), it.data_ptr(), dif.data_ptr(),
-                c, int(in_smem), stream)
+                c, int(in_smem),
+                resident_threads(rv_cap, ne) if c == RESIDENT else 0,
+                stream)
     if rc != 0:
         raise RuntimeError(f"solve_small launch failed (CUDA error {rc})")
     fused_pfdr_solve_small.launches += 1
+    if c == RESIDENT:
+        count("reduced.resident", 1)
     return xo, zo, it, dif
 
 

@@ -7,24 +7,33 @@ side runs its Pallas kernel in interpret mode, as
 reduced problem; iterates are compared at 1e-12 (float64 round-off, well
 inside the 3e-5 float32 bound of ``tests/test_solve_small.py``) and
 iteration counts exactly.
+
+The launch shape's choice of schedule and the resident schedule's
+shared-memory footprint are held against the CUDA source on the CPU; on
+the card (``-m card``) the resident schedule runs against the one-block
+schedule, bit for bit, and against the plain version.  JAX is imported
+only by the tests that compare with it, so that the card's tests run
+without it.
 """
-import jax
-import jax.numpy as jnp
+import re
+
 import numpy as np
 import pytest
 import torch
 
-from cp_pfdr_graph_d1_tpu.ops.solve_small import \
-    fused_pfdr_solve_small as jax_solve_small
-from cp_pfdr_graph_d1_tpu.solvers import cut_pursuit as jcp
 from cp_pfdr_graph_d1_tpu_torch import GraphD1, VertexProx
 from cp_pfdr_graph_d1_tpu_torch.config import Lipsch
 from cp_pfdr_graph_d1_tpu_torch.operators import DenseOp, DiagOp, GramOp
 from cp_pfdr_graph_d1_tpu_torch.ops import solve_small
-from cp_pfdr_graph_d1_tpu_torch.ops.reduced_setup import metric_value
+from cp_pfdr_graph_d1_tpu_torch.ops.reduced_setup import (metric_value,
+                                                          settle_metric)
 from cp_pfdr_graph_d1_tpu_torch.solvers import cut_pursuit as tcp
+from cp_pfdr_graph_d1_tpu_torch.solvers.cut_pursuit_common import (
+    ReducedGraph, bucket, pad_reduced_graph)
 from cp_pfdr_graph_d1_tpu_torch.solvers.pfdr_quadratic import \
     initial_precondition
+
+from ._torch_cuda_source import cuda_constant, cuda_source
 
 torch.set_num_threads(1)
 
@@ -109,6 +118,10 @@ def kernel_inputs(mode, vkind, rv, seed):
 
 def run_jax(op_kind, mat, aty, ga, th_l1, x0, z0, ec, eu, ev, *, rv, it_max,
             vprox, dif_tol2, eps):
+    import jax
+    import jax.numpy as jnp
+    from cp_pfdr_graph_d1_tpu.ops.solve_small import \
+        fused_pfdr_solve_small as jax_solve_small
     n = lambda a: np.asarray(a)  # noqa: E731
     m = jax.nn.one_hot(jnp.concatenate([jnp.asarray(n(eu)),
                                         jnp.asarray(n(ev))]),
@@ -174,6 +187,8 @@ def test_reduce_solve_small_matches_jax(mode, vkind, rv, it_max, dif_tol):
     """The whole reduced stage (reduction, Lipschitz metric,
     preconditioning, solve) against the JAX package's
     ``_reduce_solve_small``."""
+    import jax.numpy as jnp
+    from cp_pfdr_graph_d1_tpu.solvers import cut_pursuit as jcp
     eu, ev, la, a, y = ring_problem(seed=5)
     cv, reu, rev, rla = contracted(rv, seed=5)
     op_arr, obs = operator_arrays(mode, a, y)
@@ -299,3 +314,189 @@ def test_route_sends_only_problems_that_fit(dtype):
     assert ss.cluster_size("diag", 2048, 0, dtype) == 1
     assert ss.cluster_size("dense", 2048, 91, dtype) > 1
     assert ss.cluster_size("dense", 4096, 91, dtype) > 1
+
+
+# -- the resident schedule ---------------------------------------------------
+
+def c_function(src, signature):
+    """The body of the C function ``signature`` in ``src``, on one line."""
+    body = re.search(re.escape(signature) + r".*?\{(.*?)\n\}", src,
+                     re.S).group(1)
+    return " ".join(body.split())
+
+
+@pytest.mark.parametrize("itemsize", [4, 8])
+@pytest.mark.parametrize("kind,n_rows", KINDS_ROWS,
+                         ids=[f"{k}{n}" for k, n in KINDS_ROWS])
+def test_resident_footprint_mirrors_the_cuda_source(kind, n_rows, itemsize):
+    """The resident schedule's shared memory (its transposed operator with
+    padded rows, x padded to 32, A x, the forward values, the edge terms
+    and the scratch), most threads, batch and operator codes in
+    ``csrc/solve_small.cu`` are those the wrapper counts and passes."""
+    ss = solve_small
+    src = cuda_source("solve_small.cu")
+    assert cuda_constant(src, "kResidentMaxThreads") == \
+        ss.RESIDENT_MAX_THREADS
+    assert cuda_constant(src, "kResidentBatch") == ss.RESIDENT_BATCH
+    assert all(cuda_constant(src, f"kOp{k.title()}") == v
+               for k, v in ss._OP_KIND.items())
+    assert c_function(src, "int resident_op_rows(") == (
+        "return op_kind == kOpDiag ? 0 : round_up(op_kind == kOpDense ? "
+        "n_rows : rv_cap, kResidentBatch);")
+    assert c_function(src, "int resident_stride(") == (
+        "constexpr int kSize = static_cast<int>(sizeof(T)); "
+        "return round_up(n_op, 128 / kSize) + 16 / kSize;")
+    assert c_function(src, "size_t resident_smem_bytes(") == (
+        "const size_t n_op = resident_op_rows(op_kind, rv_cap, n_rows); "
+        "const size_t n_r = op_kind == kOpDense ? n_op : 0; "
+        "const size_t cap32 = round_up(rv_cap, 32); "
+        "const size_t op_vals = n_op ? cap32 * resident_stride<T>(n_op) : 0; "
+        "return sizeof(T) * (op_vals + cap32 + rv_cap + n_r + 2 * (size_t)ne "
+        "+ 64);")
+    n = n_rows if kind == "dense" else 0
+    for rv_cap in (8, 32, 128, 512, 1024):
+        for ne in (1, 40, 128, 1000):
+            rows = {"dense": -(-n // 8) * 8, "gram": -(-rv_cap // 8) * 8,
+                    "diag": 0}[kind]
+            cap32 = -(-rv_cap // 32) * 32
+            per = 128 // itemsize  # values in 128 bytes
+            stride = -(-rows // per) * per + 16 // itemsize
+            want = itemsize * ((cap32 * stride if rows else 0) + cap32
+                               + rv_cap + (rows if kind == "dense" else 0)
+                               + 2 * ne + 64)
+            assert ss.resident_op_rows(kind, rv_cap, n) == rows
+            assert ss.resident_smem_bytes(kind, rv_cap, n, ne,
+                                          itemsize) == want
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
+                         ids=["f32", "f64"])
+@pytest.mark.parametrize("kind,n_rows", KINDS_ROWS,
+                         ids=[f"{k}{n}" for k, n in KINDS_ROWS])
+def test_launch_shape_picks_resident_exactly_where_it_fits(kind, n_rows,
+                                                           dtype):
+    """Given the edges, :func:`launch_shape` picks the resident schedule
+    where it would pick one block and the whole state fits one CTA (one
+    vertex and an edge a thread, :func:`resident_smem_bytes` within the
+    limit), and elsewhere the one block or cluster it picks without them; a
+    forced resident launch that does not fit is refused; the thread count
+    is a multiple of 32 with a warp beyond the vertices and edges."""
+    ss = solve_small
+    item = torch.empty(0, dtype=dtype).element_size()
+    n = n_rows if kind == "dense" else 0
+    picked = 0
+    for rv_cap in (8, 32, 128, 256, 512, 1024, 2048, 4096):
+        for ne in (16, 128, 500, 2048, 8192):
+            c, in_smem, nbytes = ss.launch_shape(kind, rv_cap, n_rows, dtype,
+                                                 ne=ne)
+            fits = (max(rv_cap, ne) <= ss.RESIDENT_MAX_THREADS - 32
+                    and ss.resident_smem_bytes(kind, rv_cap, n, ne, item)
+                    <= ss.MAX_SMEM_BYTES)
+            assert ss.resident_fits(kind, rv_cap, n, ne, dtype) == fits
+            one_block = ss.cluster_size(kind, rv_cap, n_rows, dtype) == 1
+            if one_block and fits:
+                picked += 1
+                assert (c, in_smem) == (ss.RESIDENT, True)
+                assert nbytes == ss.resident_smem_bytes(kind, rv_cap, n, ne,
+                                                        item)
+                assert nbytes <= ss.MAX_SMEM_BYTES
+                t = ss.resident_threads(rv_cap, ne)
+                assert t % 32 == 0 and max(rv_cap, ne) <= t - 32
+                assert t <= ss.RESIDENT_MAX_THREADS
+            else:
+                assert (c, in_smem, nbytes) == ss.launch_shape(
+                    kind, rv_cap, n_rows, dtype)
+            if not fits:
+                with pytest.raises(ValueError, match="resident schedule"):
+                    ss.launch_shape(kind, rv_cap, n_rows, dtype,
+                                    cluster=ss.RESIDENT, ne=ne)
+    assert picked > 0
+
+
+# the cells' reduced shapes: (operator, rv, rv_cap); the host cut's
+# premultiplied operator at rv_cap 128, the chain's dense one of 91 rows at
+# rv_cap bucket(rv), the diagonal one
+CELL_SHAPES = (("gram", 8, 128), ("gram", 16, 128), ("gram", 33, 128),
+               ("gram", 64, 128), ("dense", 26, 32), ("dense", 48, 64),
+               ("dense", 100, 128), ("dense", 120, 256), ("diag", 20, 32),
+               ("diag", 100, 128))
+CELL_CASES = [(k, rv, c, dt) for k, rv, c in CELL_SHAPES
+              for dt in (torch.float32, torch.float64)]
+
+
+def cell_problem(kind, rv, rv_cap, dtype, device, n_rows=91, seed=0):
+    """A reduced problem of ``rv`` components padded to ``rv_cap``, made
+    as the kernel route makes it (a contraction of a [n_rows, 4 rv_cap]
+    problem by one-hot products, a ring with chords padded as the host
+    loop pads it, the set-up): ``(args, kw)`` of the whole-solve kernels
+    with the float64 runs stopping on the evolution test and the float32
+    runs taking 300 iterations."""
+    r = np.random.default_rng(seed)
+    v = 4 * rv_cap
+    a = r.standard_normal((n_rows, v)) / np.sqrt(n_rows)
+    y = a @ (r.random(v) > 0.7) + 0.01 * r.standard_normal(n_rows)
+    cv = np.sort(np.r_[np.arange(rv), r.integers(0, rv, v - rv)])
+    ring = np.arange(rv, dtype=np.int32)
+    reu = np.r_[ring, ring]
+    rev = np.r_[(ring + 1) % rv, (ring + 3) % rv].astype(np.int32)
+    rg = ReducedGraph(rv, reu, rev, 0.05 + 0.3 * r.random(2 * rv))
+    reu, rev, rla = pad_reduced_graph(rg, rv_cap, max(
+        bucket(2 * rv), 128))
+    g = GraphD1.create(reu, rev, rla, num_vertices=rv_cap, dtype=dtype,
+                       device=device)
+    t = lambda z: torch.as_tensor(z, dtype=dtype, device=device)  # noqa
+    cv_t = torch.as_tensor(cv, device=device)
+    if kind == "diag":
+        mat, ry, lip = tcp._reduce_diag(t((a * a).sum(axis=0)), t(a.T @ y),
+                                        cv_t, rv_cap)
+        r_op = DiagOp(mat)
+    else:
+        mat, ry, lip = tcp._reduce_dense(t(a), t(y), cv_t, rv_cap,
+                                         kind == "gram")
+        r_op = GramOp(mat) if kind == "gram" else DenseOp(mat)
+    x0 = t(np.r_[r.uniform(0, 0.5, rv), np.zeros(rv_cap - rv)])
+    l1 = t(np.r_[np.full(rv, 0.02), np.zeros(rv_cap - rv)])
+    vprox = VertexProx(kind="l1", positivity=True)
+    args, kw = tcp.kernel_solve_inputs(
+        r_op, mat, ry, settle_metric(lip), g, l1, x0, rv, vprox=vprox,
+        rho=1.5, dif_tol=1e-5, sort_edges=False)
+    if dtype == torch.float64:
+        kw["it_max"] = 3000
+    else:
+        kw.update(it_max=300, dif_tol2=0.0)
+    return args, kw
+
+
+@pytest.mark.card
+@pytest.mark.parametrize("kind,rv,rv_cap,dtype", CELL_CASES, ids=[
+    f"{k}{rv}of{c}-{str(dt)[6:]}" for k, rv, c, dt in CELL_CASES])
+def test_resident_schedule_is_the_one_block_schedule_bit_for_bit(
+        kind, rv, rv_cap, dtype):
+    """On the card, at the cells' shapes: the resident schedule gives the
+    one-block schedule's ``x``, ``z``, iteration count and evolution bit
+    for bit, the wrapper picks it, and it stays within the kernel's
+    tolerance of the plain version (float64 1e-10 with equal iteration
+    counts, float32 300 iterations at 1e-4)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    ss = solve_small
+    args, kw = cell_problem(kind, rv, rv_cap, dtype, "cuda")
+    n_rows = args[1].shape[0] if kind == "dense" else 0
+    assert ss.launch_shape(kind, rv_cap, n_rows, dtype,
+                           ne=args[8].shape[0])[0] == ss.RESIDENT
+    one = ss._solve(1, *args, **kw)
+    res = ss._solve(ss.RESIDENT, *args, **kw)
+    picked = ss.fused_pfdr_solve_small(*args, **kw)
+    for name, a, b, c in zip(("x", "z", "it", "dif"), res, one, picked):
+        assert torch.equal(a, b), name
+        assert torch.equal(a, c), name
+    plain = ss.solve_small_plain(*args, **kw)
+    tol = 1e-10 if dtype == torch.float64 else 1e-4
+    for a, b in zip(res[:2], plain[:2]):
+        assert float((a.double() - b.double()).abs().max()) <= tol
+    if dtype == torch.float64:
+        assert 0 < int(res[2]) < kw["it_max"]
+        assert int(res[2]) == int(plain[2])
+    else:
+        assert int(res[2]) == kw["it_max"]
+    assert torch.all(res[0][rv:] == 0)

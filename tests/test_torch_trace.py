@@ -370,6 +370,30 @@ def test_readers_read_the_records(monkeypatch):
     assert all(reader(n)(FakeRun()) is None for n in names)
 
 
+def test_resident_share_reads_the_records(monkeypatch):
+    """``resident_share``: the resident launches over the reduced solves of
+    the slice, in %; nothing to read where the port has no resident
+    schedule, as on a port before it."""
+    from cp_pfdr_graph_d1_tpu_torch.ops import solve_small
+
+    def records():
+        recs = hand_records()
+        recs[0]["counters"]["reduced.resident"] = 2
+        return recs
+    monkeypatch.setattr(monitor, "trace_records", records)
+    run = FakeRun()
+    assert reader("resident_share")(run) == pytest.approx(200 / 3)
+    monkeypatch.setattr(monitor, "trace_records", hand_records)
+    assert reader("resident_share")(run) == 0.0
+    run.traced_solves = 3
+    assert reader("resident_share")(run) is None
+    monkeypatch.setattr(monitor, "trace_records", list)
+    assert reader("resident_share")(FakeRun()) is None
+    monkeypatch.setattr(monitor, "trace_records", records)
+    monkeypatch.delattr(solve_small, "RESIDENT")
+    assert reader("resident_share")(FakeRun()) is None
+
+
 def device_records():
     """Two device-route solves, the first with a warm partition."""
     def rec(spans, counters):
