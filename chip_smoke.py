@@ -684,7 +684,7 @@ def setup_case(kind, rv, dtype, device="cuda"):
     set-up (the metric pending): ``(r_op, mat, ry, lipsch, rgraph,
     r_la_l1, x0)``."""
     import torch
-    from cp_pfdr_graph_d1_tpu_torch import GraphD1
+    from cp_pfdr_graph_d1_tpu_torch import DenseOp, DiagOp, GraphD1
     from cp_pfdr_graph_d1_tpu_torch.solvers import cut_pursuit as cp
     from cp_pfdr_graph_d1_tpu_torch.solvers.cut_pursuit_common import (
         bucket, build_reduced_graph, pad_reduced_graph)
@@ -703,12 +703,12 @@ def setup_case(kind, rv, dtype, device="cuda"):
                        device=device)
     t = lambda z: torch.as_tensor(z, dtype=dtype, device=device)  # noqa
     if kind == "diag":
-        op_kind, op_arr, obs = "diag", t((a * a).sum(axis=0)), t(a.T @ y)
+        op, obs = DiagOp(t((a * a).sum(axis=0))), t(a.T @ y)
     else:
-        op_kind, op_arr, obs = "dense", t(a), t(y)
-    r_op, mat, ry, lipsch = cp._reduce_operator(
-        op_kind, op_arr, obs, torch.as_tensor(cv, device=device), rv_cap,
-        kind == "pre_at")
+        op, obs = DenseOp(t(a)), t(y)
+    r_op, mat, ry, lipsch = cp.reduce_operator(
+        op, obs, torch.as_tensor(cv, device=device), rv, rv_cap,
+        pre_at=kind == "pre_at", onehot_max=rv_cap)
     r_la_l1 = np.zeros(rv_cap)
     np.add.at(r_la_l1, cv, LA_L1)
     x0 = t(np.r_[np.full(rv, 0.01), np.zeros(rv_cap - rv)])
@@ -1427,6 +1427,8 @@ def reduced_inputs(kind, dtype, device):
                                             StencilGraphD1, VertexProx)
     from cp_pfdr_graph_d1_tpu_torch.solvers import cut_pursuit as cp
     from cp_pfdr_graph_d1_tpu_torch.solvers import cut_pursuit_device as cd
+    from cp_pfdr_graph_d1_tpu_torch.solvers.cut_pursuit_common import \
+        ONEHOT_MAX
     if kind == "diag":
         side, la = SIDE_524K, 0.35
         op, y = IdentityOp(), denoise_problem()
@@ -1448,12 +1450,13 @@ def reduced_inputs(kind, dtype, device):
     cv, num_comp, firsts, rgraph = cd.contract(g, su != sv, eps)
     rv_cap = rgraph.num_vertices
     la_l1 = torch.full((g.num_vertices,), LA_L1, dtype=dtype, device=device)
-    r_la, rx0 = cd._reduce_vertex_terms(cv, torch.full_like(la_l1, 0.01),
-                                        la_l1, firsts, rv_cap)
+    r_la, rx0 = cd.reduce_vertex_terms(cv, torch.full_like(la_l1, 0.01),
+                                       la_l1, firsts, rv_cap)
     if kind == "dense":
         r_l1 = r_la
-    r_op, mat, ry, lipsch = cd._reduced_problem(op, obs, cv, num_comp,
-                                                rv_cap, 1000)
+    r_op, mat, ry, lipsch = cp.reduce_operator(
+        op, obs, cv, num_comp, rv_cap, onehot_max=ONEHOT_MAX,
+        pre_at=cp.pre_at(num_comp, op.num_obs, 1000))
     args, kw = cp.kernel_solve_inputs(
         r_op, mat, ry, lipsch, rgraph, r_l1, rx0, num_comp, vprox=vprox,
         rho=1.5, dif_tol=1e-7, sort_edges=True)

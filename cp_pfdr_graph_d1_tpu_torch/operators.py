@@ -17,6 +17,10 @@ class QuadOp:
 
     #: True when gradients are computed through the N-dim residual.
     uses_residual: bool = False
+    #: rows of the dense operator the contraction forms (global, padded,
+    #: for an operator sharded over ranks); 0 for an operator without an
+    #: observation axis
+    num_obs: int = 0
 
     def gram_apply(self, x):
         """``(A^t A) x``."""
@@ -48,6 +52,7 @@ class DenseOp(QuadOp):
 
     def __init__(self, a):
         self.a = a  # [N, V]
+        self.num_obs = a.shape[0]
 
     def apply(self, x):
         return self.a @ x
@@ -148,10 +153,6 @@ class RankShardedOp(QuadOp):
     chained) contracts it through :meth:`reduced`, which sums the reduction
     over the ranks so that every rank gets the same reduced problem, and
     never reads its local blocks as the whole operator."""
-
-    #: rows of the dense operator the contraction forms (global, padded);
-    #: 0 for an operator without an observation axis (the Gram mode)
-    num_obs: int = 0
 
     def reduced(self, obs, cv, rv_cap: int, pre_at: bool, onehot_max: int):
         """``(r_op, mat, ry, lipsch)`` of the problem contracted onto the

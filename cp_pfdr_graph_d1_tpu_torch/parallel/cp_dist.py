@@ -20,7 +20,7 @@ so the port writes them out, in operators that the cut-pursuit loop of
 * diagonal and identity modes: the operator is replicated.
 
 In the device loop and the chain the dense contraction takes the device
-loop's size rule: one-hot products up to ``_ONEHOT_MAX`` components,
+loop's size rule: one-hot products up to ``ONEHOT_MAX`` components,
 segment sums over the rank's rows beyond (never premultiplied there); a
 Gram beyond it raises, as on one device.
 
@@ -46,10 +46,9 @@ from ..config import CPOptions
 from ..graph import GraphD1
 from ..operators import (DenseOp, DiagOp, GramOp, IdentityOp, QuadOp,
                          RankShardedOp)
-from ..solvers.cut_pursuit import (CPResult, CPState, _one_hot,
-                                   cp_quadratic_d1, reduced_dense,
-                                   reduced_gram)
-from ..solvers.cut_pursuit_device import _run_sums
+from ..solvers.cut_pursuit import (CPResult, CPState, cp_quadratic_d1,
+                                   reduced_dense, reduced_gram)
+from ..solvers.cut_pursuit_common import one_hot, run_sums
 from ..solvers.cut_pursuit_simplex import cp_loss_d1_simplex
 from .dp import DistDenseOp
 from .mesh import Mesh, all_gather, all_sum
@@ -71,9 +70,9 @@ class DistCPDenseOp(DistDenseOp, RankShardedOp):
         segment sums over the sorted vertices beyond, never premultiplied
         there), gathered to [N, rV]."""
         if rv_cap <= onehot_max:
-            ra_loc = self.a @ _one_hot(cv, rv_cap, self.a.dtype)
+            ra_loc = self.a @ one_hot(cv, rv_cap, self.a.dtype)
         else:
-            ra_loc = _run_sums(self.a.T, cv, rv_cap).T
+            ra_loc = run_sums(self.a.T, cv, rv_cap).T
             pre_at = False
         ra = all_gather(self.mesh, ra_loc).reshape(self.num_obs, rv_cap)
         y = all_gather(self.mesh, obs).reshape(-1)
@@ -113,7 +112,7 @@ class DistGramOp(GramOp, RankShardedOp):
         parts, the same on every rank (one-hot at every size: beyond
         ``onehot_max`` the device loop raises before it gets here, as for a
         single-device Gram)."""
-        s = _one_hot(cv, rv_cap, self.gram.dtype)
+        s = one_hot(cv, rv_cap, self.gram.dtype)
         s_loc = s[self.row0:self.row0 + self.gram.shape[0]]
         raa = all_sum(self.mesh, s_loc.T @ (self.gram @ s))
         mat, ry, lipsch = reduced_gram(raa, obs @ s, rv_cap)

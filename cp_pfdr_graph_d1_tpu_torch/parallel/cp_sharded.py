@@ -48,13 +48,13 @@ from ..solvers.cut_pursuit_common import (bucket, host_reduce_dense,
                                           host_reduce_diag, machine_eps)
 from ..solvers.pfdr_quadratic import VertexProx, pfdr_quadratic_d1
 from ..stencil import StencilGraphD1
-from .halo import HaloStencilGraphD1, _la_blocks, _row_blocks
+from .halo import HaloStencilGraphD1, la_blocks, row_blocks
 from .mesh import Mesh, RingExchange, all_gather, all_gather_object, all_sum
 
 _THRESHOLDS = 15
 
 
-class _Geom(NamedTuple):
+class Geom(NamedTuple):
     """Static geometry of one row-block shard."""
     h: int
     w: int
@@ -75,7 +75,7 @@ class _Geom(NamedTuple):
         return max((abs(dy) for dy, _ in self.shifts), default=0)
 
 
-def _crossing_mask(g: _Geom) -> np.ndarray:
+def _crossing_mask(g: Geom) -> np.ndarray:
     """bool [E_loc]: the edge slots whose head lies in a neighbouring row
     block (family-major layout)."""
     m = np.zeros((len(g.shifts), g.h_loc, g.w), bool)
@@ -87,11 +87,11 @@ def _crossing_mask(g: _Geom) -> np.ndarray:
     return m.reshape(-1)
 
 
-def _halo_graph(g: _Geom, la_loc, mesh: Mesh):
+def halo_graph(g: Geom, la_loc, mesh: Mesh):
     return HaloStencilGraphD1(la_loc, (g.h_loc, g.w), g.shifts, g.wrap, mesh)
 
 
-def _fetch(mesh: Mesh, t) -> np.ndarray:
+def fetch(mesh: Mesh, t) -> np.ndarray:
     """Host copy [P, ...] of every rank's ``t`` (the same shape on every
     rank), in rank order."""
     if t.dtype == torch.bool:
@@ -103,8 +103,8 @@ def _fetch(mesh: Mesh, t) -> np.ndarray:
 # sharded PDHG min-cut
 # ---------------------------------------------------------------------------
 
-def _pdhg_cut_sharded(graph, w, c, tol_rel, it_max: int, check_every: int,
-                      x0, z0, mesh: Mesh):
+def pdhg_cut_sharded(graph, w, c, tol_rel, it_max: int, check_every: int,
+                     x0, z0, mesh: Mesh):
     """Sharded twin of ``maxflow.device._pdhg_min_cut``: the same
     iteration, every reduction summed over the ranks, so the duality-gap
     certificate is global and a certified cut is as optimal as the
@@ -171,7 +171,7 @@ def _merge_active(graph, x, active, dif_tol: float, eps: float):
     return active & ~(rel <= dif_tol)
 
 
-def _stage_components(la_loc, active, g: _Geom, mesh: Mesh):
+def stage_components(la_loc, active, g: Geom, mesh: Mesh):
     """Per-block pointer-jumping components and the boundary label pairs
     ``(labels [V_loc], pairs [B, 2], valid [B])`` (global labels)."""
     crossing = torch.as_tensor(_crossing_mask(g), device=la_loc.device)
@@ -202,7 +202,7 @@ def _stage_components(la_loc, active, g: _Geom, mesh: Mesh):
             torch.zeros(1, dtype=torch.bool, device=dev))
 
 
-def _stage_triples(graph, la_loc, active, cv_loc):
+def stage_triples(graph, la_loc, active, cv_loc):
     """The (component u, component v, weight) triples of the rank's active
     edges, compacted, on the host."""
     cu, cv = graph.gather_endpoints(cv_loc)
@@ -216,8 +216,8 @@ def _stage_triples(graph, la_loc, active, cv_loc):
 # host pieces (replicated)
 # ---------------------------------------------------------------------------
 
-def _merge_boundary(labs: np.ndarray, pairs: np.ndarray,
-                    valid: np.ndarray, v_loc: int):
+def merge_boundary(labs: np.ndarray, pairs: np.ndarray,
+                   valid: np.ndarray, v_loc: int):
     """Union-find over the boundary label pairs; returns ``(num_components,
     cv [V] int32)`` with the single-device first-encounter numbering."""
     p_shards = labs.shape[0]
@@ -248,7 +248,7 @@ def _merge_boundary(labs: np.ndarray, pairs: np.ndarray,
     return len(order), compact[comp].astype(np.int32)
 
 
-def _reduce_pairs(ru, rv, w, num_components: int, eps: float):
+def reduce_pairs(ru, rv, w, num_components: int, eps: float):
     """``build_reduced_graph`` semantics from pre-selected active pairs."""
     lo = np.minimum(ru, rv)
     hi = np.maximum(ru, rv)
@@ -268,7 +268,7 @@ def _reduce_pairs(ru, rv, w, num_components: int, eps: float):
     return r_eu, r_ev, wsum
 
 
-def _gather_triples(mesh: Mesh, triples):
+def gather_triples(mesh: Mesh, triples):
     """Every rank's triples, concatenated in rank order."""
     parts = all_gather_object(mesh, triples)
     return tuple(np.concatenate([p[k] for p in parts]) for k in range(3))
@@ -322,8 +322,8 @@ def cp_quadratic_d1_sharded(obs, graph: StencilGraphD1, mesh: Mesh, *,
     t0 = _time.monotonic()
     h, w = graph.field_shape
     p_n = mesh.size
-    g = _Geom(h, w, _row_blocks(h, graph.shifts, p_n), graph.shifts,
-              graph.wrap)
+    g = Geom(h, w, row_blocks(h, graph.shifts, p_n), graph.shifts,
+             graph.wrap)
     num_v = h * w
     obs_np = (obs.cpu().numpy() if isinstance(obs, torch.Tensor)
               else np.asarray(obs))
@@ -357,7 +357,7 @@ def cp_quadratic_d1_sharded(obs, graph: StencilGraphD1, mesh: Mesh, *,
         return torch.as_tensor(np.ascontiguousarray(np.asarray(x)[r0:r1]),
                                dtype=tdtype, device=device)
 
-    la_loc = torch.as_tensor(_la_blocks(graph, g.h_loc, p_n)[mesh.rank],
+    la_loc = torch.as_tensor(la_blocks(graph, g.h_loc, p_n)[mesh.rank],
                              dtype=tdtype, device=device)
     op_kind = "identity" if a is None else (
         "diag" if np.ndim(a) == 1 else "dense")
@@ -377,7 +377,7 @@ def cp_quadratic_d1_sharded(obs, graph: StencilGraphD1, mesh: Mesh, *,
         y_loc = mine(obs_np)
     la_l1_loc = mine(la_l1) if (has_l1 or positivity) else None
     y64 = obs_np.astype(np.float64)
-    hgraph = _halo_graph(g, la_loc, mesh)
+    hgraph = halo_graph(g, la_loc, mesh)
     active = torch.zeros(g.e_loc, dtype=torch.bool, device=device)
     x0 = torch.full((g.v_loc,), 0.5, dtype=tdtype, device=device)
     z0 = torch.zeros(g.e_loc, dtype=tdtype, device=device)
@@ -450,7 +450,7 @@ def cp_quadratic_d1_sharded(obs, graph: StencilGraphD1, mesh: Mesh, *,
         sep = torch.zeros_like(active)
         certs = []
         for k, c in enumerate(costs):
-            side, gap, big, xk, zk = _pdhg_cut_sharded(
+            side, gap, big, xk, zk = pdhg_cut_sharded(
                 hgraph, w_cut, c, opt.cut_tol, opt.cut_it_max, chk,
                 *warm[k], mesh)
             warm[k] = [xk, zk]
@@ -488,16 +488,16 @@ def cp_quadratic_d1_sharded(obs, graph: StencilGraphD1, mesh: Mesh, *,
             continue
 
         # -- components: per-block pointer jumping + host boundary merge ----
-        lab, pairs, valid = _stage_components(la_loc, active, g, mesh)
-        num_comp, cv = _merge_boundary(_fetch(mesh, lab),
-                                       _fetch(mesh, pairs),
-                                       _fetch(mesh, valid), g.v_loc)
+        lab, pairs, valid = stage_components(la_loc, active, g, mesh)
+        num_comp, cv = merge_boundary(fetch(mesh, lab),
+                                      fetch(mesh, pairs),
+                                      fetch(mesh, valid), g.v_loc)
 
         # -- contraction: per-rank compaction + host merge ------------------
         cv_loc = torch.as_tensor(cv[r0:r1].astype(np.int64), device=device)
-        tu, tv, tw = _gather_triples(
-            mesh, _stage_triples(hgraph, la_loc, active, cv_loc))
-        reu, rev, rla = _reduce_pairs(tu, tv, tw, num_comp, eps)
+        tu, tv, tw = gather_triples(
+            mesh, stage_triples(hgraph, la_loc, active, cv_loc))
+        reu, rev, rla = reduce_pairs(tu, tv, tw, num_comp, eps)
 
         # -- reduced solve (replicated; the reduced problem is o(V)) --------
         cnt_c = np.bincount(cv, minlength=num_comp)
@@ -544,7 +544,7 @@ def cp_quadratic_d1_sharded(obs, graph: StencilGraphD1, mesh: Mesh, *,
             print(f"CP(sharded) it {it}: {num_comp} components, "
                   f"dif {dif:.3g}")
 
-    active_host = _fetch(mesh, active).reshape(-1)
+    active_host = fetch(mesh, active).reshape(-1)
     return CPResult(cv=cv, rx=rx, it=it, time=np.asarray(times),
                     obj=np.zeros(0, dtype), dif=np.asarray(difs),
                     state=CPState(active=active_host, cv=cv, rx=rx))

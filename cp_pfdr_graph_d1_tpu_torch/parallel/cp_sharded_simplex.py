@@ -8,9 +8,9 @@ observation and all O(E) state cut into the row blocks of the ranks:
 
 * **K-1 alpha-expansion cuts**: the Kolmogorov-Zabih binary energies (as
   symmetric weights and unary credits, as the host loop
-  :func:`..solvers.cut_pursuit_simplex._alpha_expansion_cuts` writes them)
+  :func:`..solvers.cut_pursuit_simplex.alpha_expansion_cuts` writes them)
   solved by the certified sharded PDHG min-cut of
-  :func:`.cp_sharded._pdhg_cut_sharded`; each expansion cut warm-starts
+  :func:`.cp_sharded.pdhg_cut_sharded`; each expansion cut warm-starts
   from the same label's relaxed state of the previous iteration;
 * **components and contraction**: the sharded stages of :mod:`.cp_sharded`;
 * **reduced observations**: per-component sums of each rank's rows of the
@@ -38,15 +38,14 @@ from .. import native
 from ..config import CPOptions
 from ..solvers.cut_pursuit_common import (ReducedGraph, bucket, machine_eps,
                                           make_reduced_container, np64,
-                                          pad_reduced_graph)
-from ..solvers.cut_pursuit_device import _run_sums
+                                          pad_reduced_graph, run_sums)
 from ..solvers.cut_pursuit_simplex import CPSimplexResult, CPSimplexState
 from ..solvers.pfdr_simplex import pfdr_loss_d1_simplex
 from ..stencil import StencilGraphD1
-from .cp_sharded import (_fetch, _gather_triples, _Geom, _halo_graph,
-                         _merge_boundary, _pdhg_cut_sharded, _reduce_pairs,
-                         _stage_components, _stage_triples)
-from .halo import _la_blocks, _row_blocks
+from .cp_sharded import (Geom, fetch, gather_triples, halo_graph,
+                         merge_boundary, pdhg_cut_sharded, reduce_pairs,
+                         stage_components, stage_triples)
+from .halo import la_blocks, row_blocks
 from .mesh import Mesh, all_sum
 
 
@@ -98,7 +97,7 @@ def _expansion_cuts(graph, q_loc, la_loc, active, cv_loc, rp, rdi, warm, *,
         w = torch.where(valid, torch.where(same, 2.0 * la_loc, la_loc), 0.0)
         credit = torch.where(valid & ~same, la_loc, 0.0)
         theta = theta - graph.edge_to_vertex_sum(credit, credit)
-        side, gap, big, xn, zn = _pdhg_cut_sharded(
+        side, gap, big, xn, zn = pdhg_cut_sharded(
             graph, w, theta, opt.cut_tol, opt.cut_it_max, chk,
             *warm[n - 1], mesh)
         warm[n - 1] = [xn, zn]
@@ -131,8 +130,8 @@ def cp_loss_d1_simplex_sharded(q, graph: StencilGraphD1, mesh: Mesh, *,
     t0 = _time.monotonic()
     h, w = graph.field_shape
     p_n = mesh.size
-    g = _Geom(h, w, _row_blocks(h, graph.shifts, p_n), graph.shifts,
-              graph.wrap)
+    g = Geom(h, w, row_blocks(h, graph.shifts, p_n), graph.shifts,
+             graph.wrap)
     num_v = h * w
     q_np = (q.cpu().numpy() if isinstance(q, torch.Tensor)
             else np.asarray(q))
@@ -150,9 +149,9 @@ def cp_loss_d1_simplex_sharded(q, graph: StencilGraphD1, mesh: Mesh, *,
     r0, r1 = mesh.rank * g.v_loc, (mesh.rank + 1) * g.v_loc
     q_loc = torch.as_tensor(np.ascontiguousarray(q_np[r0:r1]), device=device)
     q64_loc = q_loc.to(torch.float64)
-    la_loc = torch.as_tensor(_la_blocks(graph, g.h_loc, p_n)[mesh.rank],
+    la_loc = torch.as_tensor(la_blocks(graph, g.h_loc, p_n)[mesh.rank],
                              dtype=tdtype, device=device)
-    hgraph = _halo_graph(g, la_loc, mesh)
+    hgraph = halo_graph(g, la_loc, mesh)
     active = torch.zeros(g.e_loc, dtype=torch.bool, device=device)
     warm = [[torch.full((g.v_loc,), 0.5, dtype=tdtype, device=device),
              torch.zeros(g.e_loc, dtype=tdtype, device=device)]
@@ -238,17 +237,17 @@ def cp_loss_d1_simplex_sharded(q, graph: StencilGraphD1, mesh: Mesh, *,
             continue
 
         # -- components and contraction (the quadratic module's stages) ----
-        lab, pairs, valid = _stage_components(la_loc, active, g, mesh)
-        num_comp, cv = _merge_boundary(_fetch(mesh, lab),
-                                       _fetch(mesh, pairs),
-                                       _fetch(mesh, valid), g.v_loc)
+        lab, pairs, valid = stage_components(la_loc, active, g, mesh)
+        num_comp, cv = merge_boundary(fetch(mesh, lab),
+                                      fetch(mesh, pairs),
+                                      fetch(mesh, valid), g.v_loc)
         cv_loc = torch.as_tensor(cv[r0:r1].astype(np.int64), device=device)
-        tu, tv, tw = _gather_triples(
-            mesh, _stage_triples(hgraph, la_loc, active, cv_loc))
-        reu, rev, rla = _reduce_pairs(tu, tv, tw, num_comp, eps)
+        tu, tv, tw = gather_triples(
+            mesh, stage_triples(hgraph, la_loc, active, cv_loc))
+        reu, rev, rla = reduce_pairs(tu, tv, tw, num_comp, eps)
 
         # -- reduced observations (:733-766) and solve (:773-780) ----------
-        qsum = all_sum(mesh, _run_sums(q64_loc, cv_loc, num_comp)
+        qsum = all_sum(mesh, run_sums(q64_loc, cv_loc, num_comp)
                        ).cpu().numpy()
         sizes = np.bincount(cv, minlength=num_comp).astype(np.float64)
         if al == 0.0:
@@ -278,7 +277,7 @@ def cp_loss_d1_simplex_sharded(q, graph: StencilGraphD1, mesh: Mesh, *,
             print(f"CP-simplex(sharded) it {it}: {num_comp} components, "
                   f"dif {dif:.3g}")
 
-    active_host = _fetch(mesh, active).reshape(-1)
+    active_host = fetch(mesh, active).reshape(-1)
     return CPSimplexResult(
         cv=cv, rp=rp, it=it, time=np.asarray(times),
         obj=np.zeros(0, dtype), dif=np.asarray(difs),

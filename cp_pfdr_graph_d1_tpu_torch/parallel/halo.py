@@ -172,7 +172,7 @@ class HaloShardedProblem(NamedTuple):
     wrap: tuple
 
 
-def _row_blocks(h: int, shifts, num_shards: int) -> int:
+def row_blocks(h: int, shifts, num_shards: int) -> int:
     """Block height; raises unless H divides and blocks hold the halo."""
     if h % num_shards:
         raise ValueError(f"H={h} not divisible by {num_shards} shards")
@@ -183,7 +183,7 @@ def _row_blocks(h: int, shifts, num_shards: int) -> int:
     return h_loc
 
 
-def _la_blocks(graph: StencilGraphD1, h_loc: int, num_shards: int):
+def la_blocks(graph: StencilGraphD1, h_loc: int, num_shards: int):
     h, w = graph.field_shape
     f = len(graph.shifts)
     la = graph.la_d1
@@ -200,12 +200,12 @@ def shard_stencil_problem(a, obs, graph: StencilGraphD1,
     block height of at least the halo depth.  ``a`` may be a numpy array or
     a tensor (kept on its device)."""
     h, w = graph.field_shape
-    h_loc = _row_blocks(h, graph.shifts, num_shards)
+    h_loc = row_blocks(h, graph.shifts, num_shards)
     n = a.shape[0]
     blocks = a.reshape(n, num_shards, h_loc * w)
     a_s = (blocks.permute(1, 0, 2) if isinstance(a, torch.Tensor)
            else np.ascontiguousarray(np.asarray(blocks).transpose(1, 0, 2)))
-    return HaloShardedProblem(a_s, obs, _la_blocks(graph, h_loc, num_shards),
+    return HaloShardedProblem(a_s, obs, la_blocks(graph, h_loc, num_shards),
                               (h, w), graph.shifts, graph.wrap)
 
 
@@ -226,7 +226,7 @@ def pfdr_quadratic_d1_halo(problem: HaloShardedProblem, mesh: Mesh, *,
     ``mesh`` (each passes the whole problem and takes its block); returns
     the result with ``x`` gathered back to the full [V] on every rank."""
     h, w = problem.field_shape
-    h_loc = _row_blocks(h, problem.shifts, mesh.size)
+    h_loc = row_blocks(h, problem.shifts, mesh.size)
     a_loc = put_sharded(problem.a, mesh, device).contiguous()
     dtype = a_loc.dtype
     obs = torch.as_tensor(problem.obs, dtype=dtype, device=device)
@@ -257,14 +257,14 @@ def shard_stencil_simplex_problem(q, graph: StencilGraphD1,
     [V, K] observation and iterate and the per-(edge, label) work are
     sharded; per-iteration communication is the O(W K) halo exchange."""
     h, w = graph.field_shape
-    h_loc = _row_blocks(h, graph.shifts, num_shards)
+    h_loc = row_blocks(h, graph.shifts, num_shards)
     q = np.asarray(q)
     k = q.shape[-1]
     q_s = q.reshape(num_shards, h_loc * w, k)
     if la_f is not None:
         la_f = np.asarray(np.broadcast_to(la_f, (h * w,)), q.dtype)
         la_f = la_f.reshape(num_shards, h_loc * w)
-    return HaloSimplexProblem(q_s, _la_blocks(graph, h_loc, num_shards),
+    return HaloSimplexProblem(q_s, la_blocks(graph, h_loc, num_shards),
                               la_f, (h, w), graph.shifts, graph.wrap)
 
 
@@ -276,7 +276,7 @@ def pfdr_loss_d1_simplex_halo(problem: HaloSimplexProblem, mesh: Mesh, *,
     every rank of ``mesh`` (the staged loop, as in the JAX package);
     returns the result with ``p`` gathered to [V, K] on every rank."""
     h, w = problem.field_shape
-    h_loc = _row_blocks(h, problem.shifts, mesh.size)
+    h_loc = row_blocks(h, problem.shifts, mesh.size)
     q_loc = put_sharded(problem.q, mesh, device)
     graph = HaloStencilGraphD1(
         put_sharded(problem.la_d1, mesh, device).to(q_loc.dtype),

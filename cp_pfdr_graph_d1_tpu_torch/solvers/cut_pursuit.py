@@ -40,7 +40,7 @@ import numpy as np
 import torch
 
 from .. import maxflow, native
-from ..config import CPOptions, Lipsch, numpy_dtype
+from ..config import CPOptions, Lipsch, PFDROptions, numpy_dtype
 from ..graph import GraphD1
 from ..operators import (DenseOp, DiagOp, GramOp, IdentityOp, QuadOp,
                          RankShardedOp)
@@ -49,14 +49,15 @@ from ..ops.reduced_setup import (PendingMetric, metric_value, reduced_setup,
                                  settle_metric)
 from ..ops.solve_fused import fused_pfdr_solve
 from ..ops.solve_small import fits, fused_pfdr_solve_small
-from ..utils.monitor import (count, read_int, solve_entry, span, to_device,
-                             to_host)
+from ..utils.monitor import (count, count_device, read_int, solve_entry,
+                             span, to_device, to_host)
 from .cut_pursuit_common import (bucket, build_reduced_graph,
                                  component_representatives,
                                  connected_components, host_reduce_dense,
                                  host_reduce_diag, host_reduce_gram,
                                  machine_eps, make_reduced_container, np64,
-                                 pad_reduced_graph, reduced_solve_route)
+                                 objective, one_hot, pad_reduced_graph,
+                                 reduced_solve_route, run_sums)
 from .pfdr_quadratic import VertexProx, pfdr_quadratic_d1
 
 # dense/Gram operators larger than this are not copied to the host for the
@@ -83,20 +84,16 @@ class CPResult(NamedTuple):
 
 
 # ---------------------------------------------------------------------------
-# device stages
+# the reduced problem of the three quadratic loops (host, device, chained)
 # ---------------------------------------------------------------------------
 
-def _objective(op: QuadOp, obs, x_full, graph: GraphD1, la_l1):
-    obj = op.quad_obj(x_full, obs)
-    xu, xv = graph.gather_endpoints(x_full)
-    obj = obj + (graph.la_d1 * (xu - xv).abs()).sum()
-    if la_l1 is not None:
-        obj = obj + (la_l1 * x_full.abs()).sum()
-    return obj
-
-
-def _one_hot(cv, rv_cap: int, dtype):
-    return torch.nn.functional.one_hot(cv.to(torch.int64), rv_cap).to(dtype)
+def pre_at(num_comp: int, n_obs: int, pfdr_it_prev: int) -> bool:
+    """Whether a dense operator is contracted premultiplied, to the reduced
+    Gram ``(A S)^t (A S)`` (the reference's rule,
+    ``CP_PFDR_graph_quadratic_d1_l1.cpp:663-836``): with fewer components
+    than ``2 N p / (N + p)``, ``N`` the observation rows (0 without a dense
+    operator: never) and ``p`` the iterations of the last reduced solve."""
+    return num_comp < (2 * n_obs * pfdr_it_prev) // (n_obs + pfdr_it_prev)
 
 
 def _reduce_dense(a, obs, cv, rv_cap: int, pre_at: bool):
@@ -104,17 +101,18 @@ def _reduce_dense(a, obs, cv, rv_cap: int, pre_at: bool):
     mode (``CP_PFDR_graph_quadratic_d1_l1.cpp:663-836``): component column
     sums as a one-hot matrix product."""
     with span("cp.reduced.operator"):
-        ra = a @ _one_hot(cv, rv_cap, a.dtype)
+        ra = a @ one_hot(cv, rv_cap, a.dtype)
     return reduced_dense(ra, obs, rv_cap, pre_at)
 
 
 def reduced_dense(ra, obs, rv_cap: int, pre_at: bool):
     """Tail of :func:`_reduce_dense` from the component column sums ``ra``
-    [N, rv_cap] (the distributed operators gather them first).  The metric
-    is left pending (:class:`..ops.reduced_setup.PendingMetric`) on the
-    reduced Gram with ``pre_at``, else on the smaller Gram matrix of the
-    normalised columns where :func:`..ops.power_iter.presymmetrize_wins`
-    says so; else the power iteration applies them twice a step, here."""
+    [N, rv_cap] (segment sums and the distributed operators form them
+    otherwise).  The metric is left pending
+    (:class:`..ops.reduced_setup.PendingMetric`) on the reduced Gram with
+    ``pre_at``, else on the smaller Gram matrix of the normalised columns
+    where :func:`..ops.power_iter.presymmetrize_wins` says so; else the
+    power iteration applies them twice a step, here."""
     if pre_at:
         with span("cp.reduced.operator"):
             raa = ra.T @ ra
@@ -138,7 +136,7 @@ def reduced_dense(ra, obs, rv_cap: int, pre_at: bool):
 def _reduce_gram(gram, obs, cv, rv_cap: int):
     """Reduced quantities for the premultiplied (A^t A) mode."""
     with span("cp.reduced.operator"):
-        s = _one_hot(cv, rv_cap, gram.dtype)
+        s = one_hot(cv, rv_cap, gram.dtype)
         raa, ry = s.T @ (gram @ s), obs @ s
     return reduced_gram(raa, ry, rv_cap)
 
@@ -154,30 +152,57 @@ def _reduce_diag(diag, obs, cv, rv_cap: int):
     """Reduced quantities for the diagonal/identity mode: the reduced Gram
     stays diagonal and is its own Lipschitz metric (``:774-776``)."""
     with span("cp.reduced.operator"):
-        s = _one_hot(cv, rv_cap, obs.dtype)
+        s = one_hot(cv, rv_cap, obs.dtype)
         rdiag = diag @ s
         return rdiag, obs @ s, rdiag
 
 
-def _reduce_operator(kind: str, op_arr, obs, cv, rv_cap: int, pre_at: bool):
-    """``(r_op, mat, ry, lipsch)`` of the problem contracted onto ``cv``,
-    for an operator of kind "dense", "gram" or "diag", or "dist" (then
-    ``op_arr`` is the operator: its ``reduced`` method sums the reduction
-    over the ranks it is sharded on, and every rank gets the same reduced
-    problem; one-hot products at every size, as for the other kinds).
-    The metric may be pending (:class:`..ops.reduced_setup.PendingMetric`):
-    :func:`_kernel_solve` hands it to the set-up, the other routes take
+def reduce_operator(op: QuadOp, obs, cv, num_comp: int, rv_cap: int, *,
+                    pre_at: bool, onehot_max: int):
+    """``(r_op, mat, ry, lipsch)`` of the problem contracted onto the labels
+    ``cv`` (``num_comp`` components padded to ``rv_cap``): the reduced
+    operator, its array, the reduced observation and the DIAG Lipschitz
+    metric (``CP_PFDR_graph_quadratic_d1_l1.cpp:663-836``), for every loop.
+
+    One-hot products up to ``onehot_max`` components; beyond, sorted
+    segment sums (:func:`.cut_pursuit_common.run_sums`) for the dense and
+    diagonal operators, never premultiplied (the [rV, rV] Gram would not
+    fit, and :func:`pre_at` never picks it at rV >> N), and a Gram operator
+    raises.  The host loop passes ``onehot_max=rv_cap`` (one-hot at every
+    size), the device loops :data:`.cut_pursuit_common.ONEHOT_MAX`.  An
+    operator sharded over ranks contracts itself by the same rule
+    (:meth:`..operators.RankShardedOp.reduced`: the same result on every
+    rank).  The metric may be pending
+    (:class:`..ops.reduced_setup.PendingMetric`): :func:`_kernel_solve`
+    hands it to the set-up, the staged route takes
     :func:`..ops.reduced_setup.metric_value`."""
-    if kind == "dist":
-        return op_arr.reduced(obs, cv, rv_cap, pre_at, onehot_max=rv_cap)
-    if kind == "dense":
-        mat, ry, lipsch = _reduce_dense(op_arr, obs, cv, rv_cap, pre_at)
+    if isinstance(op, GramOp) and rv_cap > onehot_max:
+        raise ValueError(
+            f"premultiplied (A^t A) mode cannot contract to {num_comp} "
+            "components (the [rV, rV] reduced Gram does not fit); pass "
+            "the dense operator instead")
+    onehot = rv_cap <= onehot_max
+    pre_at = pre_at and onehot
+    if isinstance(op, RankShardedOp):
+        return op.reduced(obs, cv, rv_cap, pre_at, onehot_max)
+    if isinstance(op, DenseOp):
+        if onehot:
+            mat, ry, lipsch = _reduce_dense(op.a, obs, cv, rv_cap, pre_at)
+        else:
+            mat, ry, lipsch = reduced_dense(run_sums(op.a.T, cv, rv_cap).T,
+                                            obs, rv_cap, False)
         return (GramOp(mat) if pre_at else DenseOp(mat)), mat, ry, lipsch
-    if kind == "gram":
-        mat, ry, lipsch = _reduce_gram(op_arr, obs, cv, rv_cap)
+    if isinstance(op, GramOp):
+        mat, ry, lipsch = _reduce_gram(op.gram, obs, cv, rv_cap)
         return GramOp(mat), mat, ry, lipsch
-    mat, ry, lipsch = _reduce_diag(op_arr, obs, cv, rv_cap)
-    return DiagOp(mat), mat, ry, lipsch
+    diag = (op.diag if isinstance(op, DiagOp)
+            else torch.ones(cv.shape[0], dtype=obs.dtype, device=obs.device))
+    if onehot:
+        rdiag, ry, lipsch = _reduce_diag(diag, obs, cv, rv_cap)
+    else:
+        rdiag = lipsch = run_sums(diag, cv, rv_cap)
+        ry = run_sums(obs, cv, rv_cap)
+    return DiagOp(rdiag), rdiag, ry, lipsch
 
 
 # from this many reduced vertices on, by operator kind, solve_fused (every
@@ -235,31 +260,16 @@ def fits_small(r_op: QuadOp, mat, rv_cap: int) -> bool:
 def _kernel_solve(r_op: QuadOp, mat, ry, lipsch, rgraph: GraphD1, r_la_l1,
                   x0, rv: int, it_max: int, *, vprox: VertexProx, rho: float,
                   dif_tol: float):
-    """Whole reduced PFDR solve in one kernel launch
-    (:func:`kernel_solve_inputs`): :mod:`..ops.solve_small` when the
-    problem fits it (:func:`fits_small`) and has fewer vertices than
-    ``SOLVE_FUSED_MIN_RV_CAP`` gives for its operator's kind, else
-    :mod:`..ops.solve_fused`.
-    The two compute the same function, so the choice changes speed, not
-    the result beyond float rounding.  CPU tensors run the kernels' plain
-    versions.
-
-    The power iteration of a pending metric that the set-up kernel does
-    not take (:func:`..ops.reduced_setup.settle_metric`) runs first, in its
-    own span.
-
-    Args:
-      r_op, mat, ry, lipsch: reduced operator, its array, observation and
-        DIAG Lipschitz metric (:func:`_reduce_operator`, a tensor or
-        pending).
-      rgraph: reduced graph over ``rv_cap = rgraph.num_vertices`` vertices
-        (components ``>= rv`` are padding; padding edges have weight 0).
-      r_la_l1: [rv_cap] summed l1 weights, or None.
-      x0: [rv_cap] warm start.
-
-    Returns:
-      ``(x [rv_cap], it)`` with ``it`` a 0-d int32 tensor.
-    """
+    """The kernel route of :func:`reduced_solve` (same arguments): the
+    whole PFDR solve in one kernel launch (:func:`kernel_solve_inputs`),
+    :mod:`..ops.solve_small` when the problem fits it (:func:`fits_small`)
+    and has fewer vertices than ``SOLVE_FUSED_MIN_RV_CAP`` gives for its
+    operator's kind, else :mod:`..ops.solve_fused`.  The two compute the
+    same function, so the choice changes speed, not the result beyond
+    float rounding.  CPU tensors run the kernels' plain versions.  The
+    power iteration of a pending metric that the set-up kernel does not
+    take (:func:`..ops.reduced_setup.settle_metric`) runs first, in its
+    own span.  Returns ``(x [rv_cap], it)``, ``it`` a 0-d int32 tensor."""
     small = (rgraph.num_vertices < SOLVE_FUSED_MIN_RV_CAP[_op_kind(r_op)]
              and fits_small(r_op, mat, rgraph.num_vertices))
     lipsch = settle_metric(lipsch)
@@ -278,19 +288,69 @@ def _kernel_solve(r_op: QuadOp, mat, ry, lipsch, rgraph: GraphD1, r_la_l1,
     return x, it
 
 
-def _reduce_solve_small(op_arr, obs, cv, rgraph: GraphD1, r_la_l1, x0,
-                        it_max: int, rv: int, *, kind: str, pre_at: bool,
-                        vprox: VertexProx, rho: float, dif_tol: float):
-    """One reduced cut-pursuit stage of the kernel route (counterpart of
-    the JAX package's ``_reduce_solve_small``): the reduced operator and
-    Lipschitz metric (:func:`_reduce_operator`, ``op_arr`` the full
-    operator's array, ``cv`` int [V] labels on the device), then
-    :func:`_kernel_solve`.  Returns
-    ``(x [rv_cap], it)``."""
-    r_op, mat, ry, lipsch = _reduce_operator(kind, op_arr, obs, cv,
-                                             rgraph.num_vertices, pre_at)
-    return _kernel_solve(r_op, mat, ry, lipsch, rgraph, r_la_l1, x0, rv,
-                         it_max, vprox=vprox, rho=rho, dif_tol=dif_tol)
+def reduced_solve(r_op: QuadOp, mat, ry, lipsch, rgraph: GraphD1, r_la_l1,
+                  x0, rv: int, *, route: str, it_max: int,
+                  it_fused: Optional[int] = None, vprox: VertexProx,
+                  pfdr: PFDROptions):
+    """One reduced PFDR solve of any cut-pursuit loop, on a problem that
+    :func:`reduce_operator` contracted (``CP_PFDR_graph_quadratic_d1_l1
+    .cpp:842-859``).  ``route`` (the loop's
+    :func:`.cut_pursuit_common.reduced_solve_route`; the chained loop's is
+    always ``"kernel"``) picks one whole-solve kernel
+    (:func:`_kernel_solve`) or the staged loop of :mod:`.pfdr_quadratic`.
+    The solve stops after ``it_max`` iterations; with ``it_fused``, after
+    ``it_max`` when the problem fits ``solve_small`` (:func:`fits_small`)
+    and ``it_fused`` when it does not (the chain's caps follow the
+    problem's size, not the kernel that runs it).  ``pfdr`` gives the
+    other PFDR options.  Counts one ``reduced.launches`` and adds the
+    iterations to ``reduced.iters`` at the traced solve's next device read
+    (:func:`..utils.monitor.count_device`): nothing is read here.
+
+    Args:
+      r_op, mat, ry, lipsch: the contracted problem.
+      rgraph: reduced graph over ``rv_cap = rgraph.num_vertices`` vertices
+        (components ``>= rv`` are padding; padding edges have weight 0).
+      r_la_l1: [rv_cap] summed l1 weights, or None.
+      x0: [rv_cap] warm start on the device.
+
+    Returns:
+      ``(x [rv_cap], it)`` with ``it`` a 0-d integer tensor on ``x``'s
+      device.
+    """
+    if it_fused is not None and not fits_small(r_op, mat,
+                                               rgraph.num_vertices):
+        it_max = it_fused
+    if route == "kernel":
+        x, it = _kernel_solve(r_op, mat, ry, lipsch, rgraph, r_la_l1, x0,
+                              rv, it_max, vprox=vprox, rho=float(pfdr.rho),
+                              dif_tol=float(pfdr.dif_tol))
+    else:
+        lipsch = metric_value(lipsch)
+        if it_max != pfdr.it_max:
+            pfdr = dataclasses.replace(pfdr, it_max=it_max)
+        with span("cp.reduced.launch"):
+            res = pfdr_quadratic_d1(r_op, ry, rgraph, la_l1=r_la_l1,
+                                    vprox=vprox, lipsch=lipsch,
+                                    ltype=Lipsch.DIAG, x0=x0, opt=pfdr)
+        x, it = res.x, torch.as_tensor(res.it, device=res.x.device)
+    count("reduced.launches", 1)
+    count_device("reduced.iters", it)
+    return x, it
+
+
+def _reduce_solve_small(op: QuadOp, obs, cv, rgraph: GraphD1, r_la_l1, x0,
+                        it_max: int, rv: int, *, pre_at: bool,
+                        vprox: VertexProx, pfdr: PFDROptions, route: str):
+    """One reduced stage of the host loop, on either route (on the kernel
+    route, the counterpart of the JAX package's ``_reduce_solve_small``):
+    the contraction onto ``cv`` (int [V] labels on the device) in one-hot
+    products at every size (:func:`reduce_operator`), then
+    :func:`reduced_solve`.  Returns ``(x [rv_cap], it)``."""
+    rv_cap = rgraph.num_vertices
+    r_op, mat, ry, lipsch = reduce_operator(op, obs, cv, rv, rv_cap,
+                                            pre_at=pre_at, onehot_max=rv_cap)
+    return reduced_solve(r_op, mat, ry, lipsch, rgraph, r_la_l1, x0, rv,
+                         route=route, it_max=it_max, vprox=vprox, pfdr=pfdr)
 
 
 # ---------------------------------------------------------------------------
@@ -475,8 +535,8 @@ def cp_quadratic_d1(op: QuadOp, obs, graph: GraphD1, *,
                      else None)
 
         def mon_objective(x_full_np):
-            return float(_objective(op, obs, to_device(x_full_np, device),
-                                    graph, la_l1_dev))
+            return float(objective(op, obs, to_device(x_full_np, device),
+                                   graph, la_l1_dev))
 
         # host copies of the operator: the cut gradient is a host matvec,
         # and the host_small route solves reduced problems in native C++.
@@ -504,21 +564,9 @@ def cp_quadratic_d1(op: QuadOp, obs, graph: GraphD1, *,
             la_l1_64 = (np.asarray(la_l1, np.float64)
                         if la_l1 is not None else None)
 
-        # reduced problems go to the solve_small kernel on a CUDA device
-        # (its wrapper runs the plain version for CPU tensors, with
-        # fused="on")
-        dev_route = reduced_solve_route(opt.pfdr, obs.is_cuda) == "kernel"
-        if isinstance(op, RankShardedOp):  # sharded over ranks
-            kind, op_arr = "dist", op
-        elif isinstance(op, DenseOp):
-            kind, op_arr = "dense", op.a
-        elif isinstance(op, GramOp):
-            kind, op_arr = "gram", op.gram
-        elif isinstance(op, DiagOp):
-            kind, op_arr = "diag", op.diag
-        else:
-            kind, op_arr = "diag", torch.ones(num_v, dtype=tdtype,
-                                              device=device)
+        # reduced problems go to the whole-solve kernels on a CUDA device
+        # (their plain versions for CPU tensors, with fused="on")
+        route = reduced_solve_route(opt.pfdr, obs.is_cuda)
 
         # -- initialization: single component, scalar prox solve (:66-175) --
         if state is None:
@@ -568,15 +616,6 @@ def cp_quadratic_d1(op: QuadOp, obs, graph: GraphD1, *,
         last_capped = False
         x_prev2 = x_prev
 
-    def pfdr_opt(inner_it_max):
-        if inner_it_max == opt.pfdr.it_max:
-            return opt.pfdr
-        return dataclasses.replace(opt.pfdr, it_max=inner_it_max)
-
-    def pre_at_rule(n_obs):
-        return num_comp < (2 * n_obs * pfdr_it_prev) // (
-            n_obs + pfdr_it_prev)
-
     def reduced_l1(rv_cap, cv):
         if la_l1 is None:
             return None
@@ -584,53 +623,22 @@ def cp_quadratic_d1(op: QuadOp, obs, graph: GraphD1, *,
         np.add.at(r, cv, la_l1)
         return to_device(r, device)
 
-    def reduced_iters(its: int):
-        nonlocal pfdr_it_prev
-        pfdr_it_prev = max(its, 1)
-        count("reduced.launches", 1)
-        count("reduced.iters", its)
-
-    def read_back(x, it_d, num_comp):
-        """The reduced solve's [num_comp] values on the host: the host waits
-        on the device here (and, traced, reads the set-up's power steps)."""
-        with span("cp.reduced.wait"):
-            its = read_int(it_d)
-            x = to_host(x)[:num_comp].astype(dtype)
-        reduced_iters(its)
-        return x
-
     def solve_reduced(rg, cv, num_comp, rx0, inner_it_max):
         """Solves the reduced problem on the current partition through the
         first route that applies (module docstring); returns the [rV]
         component values."""
+        nonlocal pfdr_it_prev
         with span("cp.reduced"):
-            n_obs = (op_arr.num_obs if kind == "dist"
-                     else op_arr.shape[0] if kind == "dense" else 0)
-            pre_at = n_obs > 0 and pre_at_rule(n_obs)
-            if dev_route:
-                with span("cp.reduced.graph"):
-                    rv_cap = max(bucket(num_comp), 128)
-                    e_cap = max(bucket(len(rg.eu)), 128)
-                    reu, rev, rla = pad_reduced_graph(rg, rv_cap, e_cap)
-                    rgraph = make_reduced_container(reu, rev, rla, rv_cap,
-                                                    tdtype, device)
-                    x0 = np.zeros(rv_cap, dtype)
-                    x0[:num_comp] = rx0
-                    cv_d, l1_d = to_device(cv, device), reduced_l1(rv_cap, cv)
-                    x0_d = to_device(x0, device)
-                x, it_d = _reduce_solve_small(
-                    op_arr, obs, cv_d, rgraph, l1_d, x0_d, inner_it_max,
-                    num_comp, kind=kind, pre_at=pre_at, vprox=vprox,
-                    rho=float(opt.pfdr.rho), dif_tol=float(opt.pfdr.dif_tol))
-                return read_back(x, it_d, num_comp)
-            if (use_host and num_comp <= opt.host_small_max
+            premul = pre_at(num_comp, op.num_obs, pfdr_it_prev)
+            if (route != "kernel" and use_host
+                    and num_comp <= opt.host_small_max
                     and (a_np is not None or gram_np is not None
                          or diag_np is not None)):
                 # -- host route: numpy reduce + native C++ PFDR -------------
                 with span("cp.reduced.operator"):
                     if a_np is not None:
                         mode, mat, ry, lipsch = host_reduce_dense(
-                            a_t_np, y_np, cv, num_comp, pre_at)
+                            a_t_np, y_np, cv, num_comp, premul)
                     elif gram_np is not None:
                         mat, ry, lipsch = host_reduce_gram(gram_np, y_np, cv,
                                                            num_comp)
@@ -654,28 +662,33 @@ def cp_quadratic_d1(op: QuadOp, obs, graph: GraphD1, *,
                         rho=opt.pfdr.rho, cond_min=opt.pfdr.cond_min,
                         dif_rcd=opt.pfdr.dif_rcd, dif_tol=opt.pfdr.dif_tol,
                         it_max=inner_it_max, x0=rx0)
-                reduced_iters(pfdr_it)
+                pfdr_it_prev = max(pfdr_it, 1)
+                count("reduced.launches", 1)
+                count("reduced.iters", pfdr_it)
                 return rx_new.astype(dtype)
-            # -- staged route: reduced operator on the device + PFDR loop --
+            # -- the device: reduced operator + PFDR solve (:663-859) -------
             with span("cp.reduced.graph"):
-                rv_cap = bucket(num_comp)
-                reu, rev, rla = pad_reduced_graph(rg, rv_cap,
-                                                  bucket(len(rg.eu)))
+                rv_cap, e_cap = bucket(num_comp), bucket(len(rg.eu))
+                if route == "kernel":
+                    # at least 128 vertices and edges, as the JAX package
+                    # pads for its kernel (rv_cap shapes the kernels'
+                    # schedules)
+                    rv_cap, e_cap = max(rv_cap, 128), max(e_cap, 128)
+                reu, rev, rla = pad_reduced_graph(rg, rv_cap, e_cap)
                 rgraph = make_reduced_container(reu, rev, rla, rv_cap, tdtype,
                                                 device)
-                cv_d = to_device(cv, device)
                 x0 = np.zeros(rv_cap, dtype)
                 x0[:num_comp] = rx0
-                x0_d, l1_d = to_device(x0, device), reduced_l1(rv_cap, cv)
-            r_op, _, ry, lipsch = _reduce_operator(kind, op_arr, obs, cv_d,
-                                                   rv_cap, pre_at)
-            lipsch = metric_value(lipsch)
-            # -- reduced PFDR solve (:842-859) -------------------------------
-            with span("cp.reduced.launch"):
-                res = pfdr_quadratic_d1(
-                    r_op, ry, rgraph, la_l1=l1_d, vprox=vprox, lipsch=lipsch,
-                    ltype=Lipsch.DIAG, x0=x0_d, opt=pfdr_opt(inner_it_max))
-            return read_back(res.x, res.it, num_comp)
+                cv_d, l1_d = to_device(cv, device), reduced_l1(rv_cap, cv)
+                x0_d = to_device(x0, device)
+            x, it_d = _reduce_solve_small(
+                op, obs, cv_d, rgraph, l1_d, x0_d, inner_it_max, num_comp,
+                pre_at=premul, vprox=vprox, pfdr=opt.pfdr, route=route)
+            # the host waits on the device here (and, traced, reads the
+            # set-up's power steps and the reduced iterations)
+            with span("cp.reduced.wait"):
+                pfdr_it_prev = max(read_int(it_d), 1)
+                return to_host(x)[:num_comp].astype(dtype)
 
     while it < opt.it_max and dif >= dif_tol2:
         with span("cp.iter"):

@@ -50,14 +50,14 @@ from ..operators import (DenseOp, DiagOp, GramOp, IdentityOp, QuadOp,
                          RankShardedOp)
 from ..ops.power_iter import dense_operator_norm, operator_norm
 from ..stencil import StencilGraphD1
-from ..utils.monitor import count, count_device, span
-from .cut_pursuit import CPResult, CPState, _kernel_solve, fits_small
-from .cut_pursuit_common import connected_components, machine_eps
-from .cut_pursuit_device import (_device_cut, _device_merge,
-                                 _direction_costs, _evolution, _read_cuts,
-                                 _reduce_vertex_terms, _reduced_problem,
-                                 contract, cp_quadratic_d1_device,
-                                 problem_setup, scalar_init)
+from ..utils.monitor import count, span
+from .cut_pursuit import CPResult, CPState, reduce_operator, reduced_solve
+from .cut_pursuit_common import (ONEHOT_MAX, connected_components,
+                                 machine_eps)
+from .cut_pursuit_device import (contract, cp_quadratic_d1_device,
+                                 device_cut, device_merge, direction_costs,
+                                 evolution, problem_setup, read_cuts,
+                                 reduce_vertex_terms, scalar_init)
 from .pfdr_quadratic import VertexProx, pfdr_quadratic_d1
 
 # the warm partition's jump threshold rises until at most this many
@@ -147,23 +147,19 @@ def _chain_solve(op: QuadOp, obs, la_l1_dev, has_l1: bool,
     segment-sum) reduction, never premultiplied, warm-started from the
     components' values (padding components at 0), then one whole-solve
     kernel capped at ``it_small`` iterations when the problem fits
-    ``solve_small`` (:func:`.cut_pursuit.fits_small`) and ``it_fused``
-    when it does not, as the JAX chain caps its small-kernel and banded
-    routes.  The cap follows from the problem's size, not from the kernel
-    that runs it.  Returns ``rx``."""
+    ``solve_small`` and ``it_fused`` when it does not, as the JAX chain
+    caps its small-kernel and banded routes
+    (:func:`.cut_pursuit.reduced_solve`).  Returns ``rx``; the iterations
+    stay on the device."""
     rv_cap = rgraph.num_vertices
-    r_la_l1, rx0 = _reduce_vertex_terms(cv, x_full, la_l1_dev, firsts,
-                                        rv_cap)
+    r_la_l1, rx0 = reduce_vertex_terms(cv, x_full, la_l1_dev, firsts,
+                                       rv_cap)
     rx0[num_comp:] = 0
-    r_op, mat, ry, lipsch = _reduced_problem(op, obs, cv, num_comp, rv_cap,
-                                             1, pre_at_allowed=False)
-    it_max = it_small if fits_small(r_op, mat, rv_cap) else it_fused
-    rx, it = _kernel_solve(
-        r_op, mat, ry, lipsch, rgraph, r_la_l1 if has_l1 else None, rx0,
-        num_comp, it_max, vprox=vprox, rho=float(opt.pfdr.rho),
-        dif_tol=float(opt.pfdr.dif_tol))
-    count("reduced.launches", 1)
-    count_device("reduced.iters", it)
+    reduced = reduce_operator(op, obs, cv, num_comp, rv_cap, pre_at=False,
+                              onehot_max=ONEHOT_MAX)
+    rx, _ = reduced_solve(*reduced, rgraph, r_la_l1 if has_l1 else None,
+                          rx0, num_comp, route="kernel", it_max=it_small,
+                          it_fused=it_fused, vprox=vprox, pfdr=opt.pfdr)
     return rx
 
 
@@ -251,9 +247,9 @@ def cp_quadratic_d1_chain(op: QuadOp, obs, graph: GraphD1, *,
                               it_fused)
         with span("cp.device_merge"):
             x_new = rx[cv.to(torch.int64)]
-            merged = _device_merge(graph, x_new, active_new, eps,
-                                   opt.dif_tol)
-            dif = float(_evolution(x_new, x_full, eps)) if evolve else None
+            merged = device_merge(graph, x_new, active_new, eps,
+                                  opt.dif_tol)
+            dif = float(evolution(x_new, x_full, eps)) if evolve else None
         return cv, num_comp, rx, x_new, merged, dif
 
     it = 0
@@ -289,21 +285,21 @@ def cp_quadratic_d1_chain(op: QuadOp, obs, graph: GraphD1, *,
 
         with span("cp.iter"):
             with span("cp.device_cut"):
-                c1, c2 = _direction_costs(
+                c1, c2 = direction_costs(
                     op, obs, graph, x_full, active, la_l1_dev, lo=lo, hi=hi,
                     differentiable=differentiable, has_l1=has_l1,
                     positivity=positivity)
-                sep, gap1, big1, *cut1 = _device_cut(
+                sep, gap1, big1, *cut1 = device_cut(
                     graph, active, c1, opt.cut_tol, opt.cut_it_max, chk,
                     *cut1)
                 checks = [gap1, big1]
                 if not differentiable:
-                    sep2, gap2, big2, *cut2 = _device_cut(
+                    sep2, gap2, big2, *cut2 = device_cut(
                         graph, active, c2, opt.cut_tol, opt.cut_it_max, chk,
                         *cut2)
                     checks += [gap2, big2]
                     sep = sep | sep2
-                n_new, certified = _read_cuts(sep, checks, opt.cut_tol)
+                n_new, certified = read_cuts(sep, checks, opt.cut_tol)
             if not certified:
                 uncertified = True
                 break
@@ -315,7 +311,7 @@ def cp_quadratic_d1_chain(op: QuadOp, obs, graph: GraphD1, *,
                 it += 1
                 continue
             cv, num_comp, rx, x_full, active, dif = solve_on(active_new,
-                                                              True)
+                                                             True)
             difs.append(dif)
             it += 1
 

@@ -1,15 +1,18 @@
-"""Host-side machinery of the cut-pursuit outer solver (counterpart of
-``cp_pfdr_graph_d1_tpu.solvers.cut_pursuit_common``; numpy and scipy, as
-there).
+"""Machinery shared by the cut-pursuit loops (counterpart of
+``cp_pfdr_graph_d1_tpu.solvers.cut_pursuit_common``).
 
-Connected components and reduced-graph contraction run vectorized on the
-host: they are O(E) index manipulation.  Reference structures reproduced:
+On the host, in numpy and scipy as there: connected components and the
+reduced-graph contraction run vectorized (O(E) index manipulation).  Reference structures reproduced:
 DFS connected components over inactive edges
 (``CP_PFDR_graph_quadratic_d1_l1.cpp:570-596``), reduced connectivity with
 parallel-edge merging, self-loops for same-component active edges, and eps
 self-loops for isolated components (``:607-661``).  Reduced shapes are
 padded to power-of-two capacities as in the JAX package, so that both
 packages solve the same padded reduced problems.
+
+On the tensors' device, for the device loops: the contraction's sort and
+padding (:func:`contract_sort`, :func:`contract_pad`), per-component sums
+(:func:`run_sums`), one-hot selectors and the objective.
 """
 from __future__ import annotations
 
@@ -26,7 +29,11 @@ from ..utils.monitor import to_host
 
 # above this component count the [V, rV] one-hot contractions give way to
 # sorted segment sums (the one-hot selector would take O(V rV) memory)
-_ONEHOT_MAX = 4096
+ONEHOT_MAX = 4096
+# an uncertified device cut continues for up to this many times cut_it_max
+# more steps before the host redo (CPU tensors) or an error (CUDA tensors)
+CONTINUE_FACTOR = 4
+_INT_SENTINEL = 2**31 - 1
 
 
 def bucket(n: int, minimum: int = 8) -> int:
@@ -264,3 +271,86 @@ def np64(x):
     if isinstance(x, torch.Tensor):
         x = to_host(x)
     return np.asarray(x, np.float64)
+
+
+# ---------------------------------------------------------------------------
+# device-side pieces of the loops (tensors on the solve's device)
+# ---------------------------------------------------------------------------
+
+def objective(op, obs, x_full, graph: GraphD1, la_l1):
+    """The cut-pursuit objective at ``x_full`` (a 0-d tensor): the
+    quadratic term of ``op``, the d1 term and the l1 term when ``la_l1``
+    is given."""
+    obj = op.quad_obj(x_full, obs)
+    xu, xv = graph.gather_endpoints(x_full)
+    obj = obj + (graph.la_d1 * (xu - xv).abs()).sum()
+    if la_l1 is not None:
+        obj = obj + (la_l1 * x_full.abs()).sum()
+    return obj
+
+
+def one_hot(cv, rv_cap: int, dtype):
+    """[V, rv_cap] component selector of the labels ``cv``."""
+    return torch.nn.functional.one_hot(cv.to(torch.int64), rv_cap).to(dtype)
+
+
+def contract_sort(cv, graph: GraphD1, active):
+    """Contraction, phase A: the active nonzero edges' component pairs
+    ``(lo, hi)`` sorted stably by ``lo`` then ``hi`` (two stable sorts;
+    unselected edges carry a sentinel and sort last), their weights in that
+    order, the run-start flags and the run count (a 0-d tensor)."""
+    sel = active & (graph.la_d1 > 0)
+    cu, cvv = graph.gather_endpoints(cv)
+    lo = torch.where(sel, torch.minimum(cu, cvv), _INT_SENTINEL)
+    hi = torch.where(sel, torch.maximum(cu, cvv), _INT_SENTINEL)
+    order = torch.sort(hi, stable=True).indices
+    order = order[torch.sort(lo[order], stable=True).indices]
+    lo, hi = lo[order], hi[order]
+    w = torch.where(sel, graph.la_d1, 0.0)[order]
+    first = torch.ones(1, dtype=torch.bool, device=lo.device)
+    flags = (torch.cat([first, (lo[1:] != lo[:-1]) | (hi[1:] != hi[:-1])])
+             & (lo != _INT_SENTINEL))
+    return lo, hi, w, flags, flags.sum()
+
+
+def contract_pad(lo, hi, w, flags, num_comp: int, eps: float,
+                 rv_cap: int, re_cap: int):
+    """Contraction, phase B: run-length weight sums padded to ``re_cap``
+    edges with zero-weight self-loops spread over the components, then an
+    ``eps`` self-loop on every live component (an extra eps self-loop adds
+    ``eps |x_c - x_c| = 0`` to the objective, so the minimizer is
+    unchanged).  Returns int64 ``reu, rev`` and ``rla`` of ``re_cap +
+    rv_cap`` edges."""
+    e = lo.shape[0]
+    starts = torch.nonzero(flags).reshape(-1)
+    n_runs = starts.numel()
+    offsets = torch.cat([starts, starts.new_full((1,), e)])
+    wsum = torch.segment_reduce(w, "sum", offsets=offsets)
+    iota_e = torch.arange(re_cap, device=lo.device)
+    spread = iota_e % rv_cap
+    pad = re_cap - n_runs
+    reu = torch.cat([lo[starts].to(torch.int64), spread[n_runs:]])
+    rev = torch.cat([hi[starts].to(torch.int64), spread[n_runs:]])
+    rla = torch.cat([wsum, w.new_zeros(pad)])
+    iota = torch.arange(rv_cap, device=lo.device)
+    eps_la = torch.where(iota < num_comp, eps, 0.0).to(w.dtype)
+    return (torch.cat([reu, iota]), torch.cat([rev, iota]),
+            torch.cat([rla, eps_la]))
+
+
+def _vertex_runs(cv, rv_cap: int):
+    """Vertices sorted stably by component label, and the offsets of the
+    runs (labels are contiguous first-encounter ints, so run ``i`` is
+    component ``i``; empty runs pad to ``rv_cap``)."""
+    order = torch.sort(cv, stable=True).indices
+    counts = torch.bincount(cv.to(torch.int64), minlength=rv_cap)
+    offsets = torch.zeros(rv_cap + 1, dtype=torch.int64, device=cv.device)
+    offsets[1:] = torch.cumsum(counts, 0)
+    return order, offsets
+
+
+def run_sums(values, cv, rv_cap: int):
+    """Per-component sums of ``values`` ([V] or [V, N]) as deterministic
+    segment reductions over the vertices sorted by component."""
+    order, offsets = _vertex_runs(cv, rv_cap)
+    return torch.segment_reduce(values[order], "sum", offsets=offsets)

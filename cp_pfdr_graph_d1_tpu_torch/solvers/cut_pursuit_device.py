@@ -26,14 +26,13 @@ CP iteration.  Here the whole iteration stays on the tensors' device:
   reference adds them to isolated components only; an extra eps self-loop
   adds ``eps |x_c - x_c| = 0`` to the objective, so the minimizer is
   unchanged);
-* reduced operator and solve: one-hot products up to ``_ONEHOT_MAX``
-  components and sorted segment sums beyond (an operator sharded over
-  ranks, :mod:`..parallel.cp_dist`, contracts itself by the same rule and
-  sums over the ranks), then one whole-solve kernel
-  (:func:`.cut_pursuit._kernel_solve`: ``solve_small`` when the problem
-  fits its shared memory and has fewer vertices than
-  ``SOLVE_FUSED_MIN_RV_CAP`` gives for the operator's kind, ``solve_fused``
-  otherwise), or the staged
+* reduced operator and solve, as in every loop
+  (:func:`.cut_pursuit.reduce_operator` with the premultiplication rule
+  :func:`.cut_pursuit.pre_at`, then :func:`.cut_pursuit.reduced_solve`):
+  one-hot products up to ``ONEHOT_MAX`` components and sorted segment sums
+  beyond (an operator sharded over ranks, :mod:`..parallel.cp_dist`,
+  contracts itself by the same rule and sums over the ranks), then one
+  whole-solve kernel (``solve_small`` or ``solve_fused``), or the staged
   PFDR loop for CPU tensors with ``pfdr.fused="auto"``, for
   ``pfdr.fused="off"``, and with ``"auto"`` for ``pfdr.dif_rcd > 0`` or
   ``pfdr.verbose > 0`` (:func:`.cut_pursuit_common.reduced_solve_route`);
@@ -58,28 +57,24 @@ import numpy as np
 import torch
 
 from .. import maxflow
-from ..config import CPOptions, Lipsch, numpy_dtype
+from ..config import CPOptions, numpy_dtype
 from ..graph import GraphD1
 from ..maxflow.device import _pdhg_min_cut, _pdhg_min_cut_duplex
-from ..operators import DenseOp, DiagOp, GramOp, QuadOp, RankShardedOp
+from ..operators import QuadOp
 from ..ops.components import connected_components_device
 from ..ops.components_fused import (compact_labels_device,
                                     device_components_stencil_fused)
 from ..ops.mincut_fused import device_cut_stencil_fused
-from ..ops.reduced_setup import metric_value
 from ..stencil import StencilGraphD1
 from ..utils.monitor import count, read_floats, read_int, span
-from .cut_pursuit import (CPResult, CPState, _kernel_solve, _objective,
-                          _reduce_dense, _reduce_diag, _reduce_gram,
-                          reduced_dense)
-from .cut_pursuit_common import (_ONEHOT_MAX, bucket, machine_eps,
-                                 make_reduced_container, reduced_solve_route)
-from .pfdr_quadratic import VertexProx, pfdr_quadratic_d1
-
-# an uncertified device cut continues for up to this many times cut_it_max
-# more steps before the host redo (CPU tensors) or an error (CUDA tensors)
-CONTINUE_FACTOR = 4
-_INT_SENTINEL = 2**31 - 1
+from .cut_pursuit import (CPResult, CPState, pre_at, reduce_operator,
+                          reduced_solve)
+from .cut_pursuit_common import (CONTINUE_FACTOR, ONEHOT_MAX, bucket,
+                                 contract_pad, contract_sort, machine_eps,
+                                 make_reduced_container, objective,
+                                 reduced_solve_route, run_sums)
+# benchmark/tests/test_bench_harness.py patches pfdr_quadratic_d1 here
+from .pfdr_quadratic import VertexProx, pfdr_quadratic_d1  # noqa: F401
 
 
 def stencil_kernels(graph) -> bool:
@@ -104,9 +99,9 @@ def _smooth_grad(op: QuadOp, obs, graph: GraphD1, x, active, la_l1,
     return dfs
 
 
-def _direction_costs(op: QuadOp, obs, graph: GraphD1, x, active, la_l1, *,
-                     lo: float, hi: float, differentiable: bool,
-                     has_l1: bool, positivity: bool):
+def direction_costs(op: QuadOp, obs, graph: GraphD1, x, active, la_l1, *,
+                    lo: float, hi: float, differentiable: bool,
+                    has_l1: bool, positivity: bool):
     """The one or two cut cost vectors (``CP_PFDR_graph_quadratic_d1_l1
     .cpp:339-549``)."""
     dfs = _smooth_grad(op, obs, graph, x, active, la_l1, has_l1)
@@ -146,8 +141,8 @@ def _duplex_costs(op: QuadOp, obs, graph: GraphD1, x, active, la_l1, *,
     return -do + m, -(up + m), m
 
 
-def _device_cut(graph: GraphD1, active, c, tol: float, it_max: int,
-                check_every: int, x0=None, z0=None):
+def device_cut(graph: GraphD1, active, c, tol: float, it_max: int,
+               check_every: int, x0=None, z0=None):
     """One steepest cut on the standing graph (active edges weight-masked
     out); returns ``(sep [E] bool, gap, big, x, z)``: the separated edges,
     the duality gap and cost scale (0-d tensors; certified when
@@ -194,7 +189,7 @@ def _device_cut_duplex(graph: GraphD1, active, c1, c2, m, tol: float,
     return sep, gap, big, x, z, zv
 
 
-def _device_components(graph: GraphD1, active):
+def device_components(graph: GraphD1, active):
     """Labels of the components of the inactive nonzero-weight edges,
     compacted to first-encounter order: ``(cv int32, num_comp, firsts)``
     with ``num_comp`` a 0-d tensor."""
@@ -204,93 +199,18 @@ def _device_components(graph: GraphD1, active):
     return compact_labels_device(connected_components_device(graph, mask))
 
 
-def _contract_sort(cv, graph: GraphD1, active):
-    """Contraction, phase A: the active nonzero edges' component pairs
-    ``(lo, hi)`` sorted stably by ``lo`` then ``hi`` (two stable sorts;
-    unselected edges carry a sentinel and sort last), their weights in that
-    order, the run-start flags and the run count (a 0-d tensor)."""
-    sel = active & (graph.la_d1 > 0)
-    cu, cvv = graph.gather_endpoints(cv)
-    lo = torch.where(sel, torch.minimum(cu, cvv), _INT_SENTINEL)
-    hi = torch.where(sel, torch.maximum(cu, cvv), _INT_SENTINEL)
-    order = torch.sort(hi, stable=True).indices
-    order = order[torch.sort(lo[order], stable=True).indices]
-    lo, hi = lo[order], hi[order]
-    w = torch.where(sel, graph.la_d1, 0.0)[order]
-    first = torch.ones(1, dtype=torch.bool, device=lo.device)
-    flags = (torch.cat([first, (lo[1:] != lo[:-1]) | (hi[1:] != hi[:-1])])
-             & (lo != _INT_SENTINEL))
-    return lo, hi, w, flags, flags.sum()
-
-
-def _contract_pad(lo, hi, w, flags, num_comp: int, eps: float,
-                  rv_cap: int, re_cap: int):
-    """Contraction, phase B: run-length weight sums padded to ``re_cap``
-    edges with zero-weight self-loops spread over the components, then an
-    ``eps`` self-loop on every live component (see the module docstring).
-    Returns int64 ``reu, rev`` and ``rla`` of ``re_cap + rv_cap`` edges."""
-    e = lo.shape[0]
-    starts = torch.nonzero(flags).reshape(-1)
-    n_runs = starts.numel()
-    offsets = torch.cat([starts, starts.new_full((1,), e)])
-    wsum = torch.segment_reduce(w, "sum", offsets=offsets)
-    iota_e = torch.arange(re_cap, device=lo.device)
-    spread = iota_e % rv_cap
-    pad = re_cap - n_runs
-    reu = torch.cat([lo[starts].to(torch.int64), spread[n_runs:]])
-    rev = torch.cat([hi[starts].to(torch.int64), spread[n_runs:]])
-    rla = torch.cat([wsum, w.new_zeros(pad)])
-    iota = torch.arange(rv_cap, device=lo.device)
-    eps_la = torch.where(iota < num_comp, eps, 0.0).to(w.dtype)
-    return (torch.cat([reu, iota]), torch.cat([rev, iota]),
-            torch.cat([rla, eps_la]))
-
-
-def _vertex_runs(cv, rv_cap: int):
-    """Vertices sorted stably by component label, and the offsets of the
-    runs (labels are contiguous first-encounter ints, so run ``i`` is
-    component ``i``; empty runs pad to ``rv_cap``)."""
-    order = torch.sort(cv, stable=True).indices
-    counts = torch.bincount(cv.to(torch.int64), minlength=rv_cap)
-    offsets = torch.zeros(rv_cap + 1, dtype=torch.int64, device=cv.device)
-    offsets[1:] = torch.cumsum(counts, 0)
-    return order, offsets
-
-
-def _run_sums(values, cv, rv_cap: int):
-    """Per-component sums of ``values`` ([V] or [V, N]) as deterministic
-    segment reductions over the vertices sorted by component."""
-    order, offsets = _vertex_runs(cv, rv_cap)
-    return torch.segment_reduce(values[order], "sum", offsets=offsets)
-
-
-def _reduce_vertex_terms(cv, x, la_l1, firsts, rv_cap: int):
+def reduce_vertex_terms(cv, x, la_l1, firsts, rv_cap: int):
     """Reduced l1 weights (summed per component) and the warm start (one
     representative per component, padded with ``x[0]`` as in the JAX
     package)."""
-    r_la_l1 = _run_sums(la_l1, cv, rv_cap)
+    r_la_l1 = run_sums(la_l1, cv, rv_cap)
     reps = torch.zeros(rv_cap, dtype=torch.int64, device=cv.device)
     first_idx = torch.nonzero(firsts).reshape(-1)
     reps[:first_idx.numel()] = first_idx
     return r_la_l1, x[reps]
 
 
-def _segment_reduce_dense(a, obs, cv, rv_cap: int):
-    """Dense reduction beyond the one-hot cap: per-component column sums of
-    ``A`` by segment sums over the sorted vertices, O(V N) memory, never
-    premultiplied (the [rV, rV] Gram would not fit, and the reference's
-    premultiplication rule never picks it at rV >> N)."""
-    ra = _run_sums(a.T, cv, rv_cap).T                      # [N, rv_cap]
-    return reduced_dense(ra, obs, rv_cap, False)
-
-
-def _segment_reduce_diag(diag, obs, cv, rv_cap: int):
-    """Diagonal reduction beyond the one-hot cap, by segment sums."""
-    rdiag = _run_sums(diag, cv, rv_cap)
-    return rdiag, _run_sums(obs, cv, rv_cap), rdiag
-
-
-def _device_merge(graph: GraphD1, x, active, eps: float, dif_tol: float):
+def device_merge(graph: GraphD1, x, active, eps: float, dif_tol: float):
     """Deactivates active edges whose endpoint components are relatively
     equal (``CP_PFDR_graph_quadratic_d1_l1.cpp:863-886``)."""
     xu, xv = graph.gather_endpoints(x)
@@ -300,52 +220,11 @@ def _device_merge(graph: GraphD1, x, active, eps: float, dif_tol: float):
     return active & ~(rel <= dif_tol)
 
 
-def _evolution(x, x_prev, eps: float):
+def evolution(x, x_prev, eps: float):
     delta = x - x_prev
     num = torch.dot(delta, delta)
     den = torch.dot(x, x)
     return torch.where(den > eps, num / den, num / eps)
-
-
-def _reduced_problem(op: QuadOp, obs, cv, num_comp: int, rv_cap: int,
-                     pfdr_it_prev: int, pre_at_allowed: bool = True,
-                     onehot_max: int = _ONEHOT_MAX):
-    """Reduced operator, observation and DIAG Lipschitz metric on the
-    partition ``cv`` (``CP_PFDR_graph_quadratic_d1_l1.cpp:663-836``):
-    ``(r_op, mat, ry, lipsch)``; one-hot products up to ``onehot_max``
-    components, segment sums beyond.  A rank-sharded operator contracts
-    itself (:meth:`..operators.RankShardedOp.reduced`, the same result on
-    every rank); its premultiplication rule counts the global observation
-    axis, as the host loop does.  The metric may be pending, as in
-    :func:`.cut_pursuit._reduce_operator`."""
-    if isinstance(op, GramOp) and rv_cap > onehot_max:
-        raise ValueError(
-            f"premultiplied (A^t A) mode cannot contract to {num_comp} "
-            "components (the [rV, rV] reduced Gram does not fit); pass "
-            "the dense operator instead")
-    if isinstance(op, (DenseOp, RankShardedOp)):
-        n_obs = (op.num_obs if isinstance(op, RankShardedOp)
-                 else op.a.shape[0])
-        pre_at = (pre_at_allowed and rv_cap <= onehot_max
-                  and num_comp < (2 * n_obs * pfdr_it_prev)
-                  // (n_obs + pfdr_it_prev))
-        if isinstance(op, RankShardedOp):
-            return op.reduced(obs, cv, rv_cap, pre_at, onehot_max)
-        if rv_cap <= onehot_max:
-            mat, ry, lipsch = _reduce_dense(op.a, obs, cv, rv_cap, pre_at)
-        else:
-            mat, ry, lipsch = _segment_reduce_dense(op.a, obs, cv, rv_cap)
-        return (GramOp(mat) if pre_at else DenseOp(mat)), mat, ry, lipsch
-    if isinstance(op, GramOp):
-        mat, ry, lipsch = _reduce_gram(op.gram, obs, cv, rv_cap)
-        return GramOp(mat), mat, ry, lipsch
-    diag = (op.diag if isinstance(op, DiagOp)
-            else torch.ones(cv.shape[0], dtype=obs.dtype, device=obs.device))
-    if rv_cap <= onehot_max:
-        rdiag, ry, lipsch = _reduce_diag(diag, obs, cv, rv_cap)
-    else:
-        rdiag, ry, lipsch = _segment_reduce_diag(diag, obs, cv, rv_cap)
-    return DiagOp(rdiag), rdiag, ry, lipsch
 
 
 def contract(graph: GraphD1, active, eps: float):
@@ -354,13 +233,13 @@ def contract(graph: GraphD1, active, eps: float):
     ``bucket(num_comp)`` vertices on the device
     (:func:`.cut_pursuit_common.make_reduced_container`; three host reads:
     the component and reduced-edge counts, the largest reduced degree)."""
-    cv, num_comp_t, firsts = _device_components(graph, active)
-    lo_s, hi_s, w_s, flags, re_count = _contract_sort(cv, graph, active)
+    cv, num_comp_t, firsts = device_components(graph, active)
+    lo_s, hi_s, w_s, flags, re_count = contract_sort(cv, graph, active)
     num_comp, re_count = (int(v) for v in torch.stack(
         [num_comp_t.to(torch.int64), re_count.to(torch.int64)]).cpu())
     rv_cap = bucket(num_comp)
-    reu, rev, rla = _contract_pad(lo_s, hi_s, w_s, flags, num_comp, eps,
-                                  rv_cap, bucket(re_count))
+    reu, rev, rla = contract_pad(lo_s, hi_s, w_s, flags, num_comp, eps,
+                                 rv_cap, bucket(re_count))
     return cv, num_comp, firsts, make_reduced_container(
         reu, rev, rla, rv_cap, rla.dtype, rla.device)
 
@@ -452,7 +331,7 @@ def _host_duplex_fallback(graph: GraphD1, active, c1, c2, m):
     return _separation(graph, inact, sep_i, active.device)
 
 
-def _read_cuts(sep, checks, cut_tol: float):
+def read_cuts(sep, checks, cut_tol: float):
     """One host read of a round of cuts (span ``cp.device_cut.wait``):
     ``(new separated edges, certified)`` from ``sep`` and the cuts'
     ``[gap, big, ...]`` pairs."""
@@ -492,7 +371,7 @@ def cp_quadratic_d1_device(op: QuadOp, obs, graph: GraphD1, *,
         dif_tol2 = opt.dif_tol * opt.dif_tol
         # reduced solves: one whole-solve kernel on a CUDA device (its plain
         # version on the CPU with fused="on"), the staged loop otherwise
-        kernel_route = reduced_solve_route(opt.pfdr, obs.is_cuda) == "kernel"
+        route = reduced_solve_route(opt.pfdr, obs.is_cuda)
 
         if state is None:
             x1 = scalar_init(op, obs, num_v, la_l1_dev, has_l1, positivity,
@@ -510,8 +389,8 @@ def cp_quadratic_d1_device(op: QuadOp, obs, graph: GraphD1, *,
                                      device=device)
 
         def mon_objective(x):
-            return float(_objective(op, obs, x, graph,
-                                    la_l1_dev if has_l1 else None))
+            return float(objective(op, obs, x, graph,
+                                   la_l1_dev if has_l1 else None))
 
         times = [0.0]
         objs = [mon_objective(x_full)] if monitor else []
@@ -543,19 +422,19 @@ def cp_quadratic_d1_device(op: QuadOp, obs, graph: GraphD1, *,
                             chk, *dup)
                         return sep, [gap, big]
                 else:
-                    c1, c2 = _direction_costs(
+                    c1, c2 = direction_costs(
                         op, obs, graph, x_full, active, la_l1_dev, lo=lo,
                         hi=hi, differentiable=differentiable, has_l1=has_l1,
                         positivity=positivity)
 
                     def cuts(it_max):
                         nonlocal cut1, cut2
-                        sep, gap1, big1, *cut1 = _device_cut(
+                        sep, gap1, big1, *cut1 = device_cut(
                             graph, active, c1, opt.cut_tol, it_max, chk,
                             *cut1)
                         checks = [gap1, big1]
                         if not differentiable:
-                            sep2, gap2, big2, *cut2 = _device_cut(
+                            sep2, gap2, big2, *cut2 = device_cut(
                                 graph, active, c2, opt.cut_tol, it_max, chk,
                                 *cut2)
                             checks += [gap2, big2]
@@ -563,11 +442,11 @@ def cp_quadratic_d1_device(op: QuadOp, obs, graph: GraphD1, *,
                         return sep, checks
 
                 sep, checks = cuts(opt.cut_it_max)
-                n_new, certified = _read_cuts(sep, checks, opt.cut_tol)
+                n_new, certified = read_cuts(sep, checks, opt.cut_tol)
                 if not certified:
                     # continue the cuts from their own iterates
                     sep, checks = cuts(CONTINUE_FACTOR * opt.cut_it_max)
-                    n_new, certified = _read_cuts(sep, checks, opt.cut_tol)
+                    n_new, certified = read_cuts(sep, checks, opt.cut_tol)
                 if not certified:
                     kind = "duplex cut" if use_duplex else "cut"
                     count("cut.uncertified", len(checks) // 2)
@@ -601,37 +480,23 @@ def cp_quadratic_d1_device(op: QuadOp, obs, graph: GraphD1, *,
                 cv, num_comp, firsts, rgraph = contract(graph, active, eps)
             with span("cp.device_reduced"):
                 rv_cap = rgraph.num_vertices
-                r_la_l1, rx0 = _reduce_vertex_terms(cv, x_full, la_l1_dev,
-                                                    firsts, rv_cap)
-                r_op, mat, ry, lipsch = _reduced_problem(
-                    op, obs, cv, num_comp, rv_cap, pfdr_it_prev)
-
-                # -- reduced PFDR solve (:842-859) ---------------------------
-                if kernel_route:
-                    rx, it_d = _kernel_solve(
-                        r_op, mat, ry, lipsch, rgraph,
-                        r_la_l1 if has_l1 else None, rx0, num_comp,
-                        opt.pfdr.it_max, vprox=vprox,
-                        rho=float(opt.pfdr.rho),
-                        dif_tol=float(opt.pfdr.dif_tol))
-                    its = read_int(it_d)
-                else:
-                    lipsch = metric_value(lipsch)
-                    res = pfdr_quadratic_d1(
-                        r_op, ry, rgraph, la_l1=r_la_l1 if has_l1 else None,
-                        vprox=vprox, lipsch=lipsch, ltype=Lipsch.DIAG,
-                        x0=rx0, opt=opt.pfdr)
-                    rx, its = res.x, res.it
-                pfdr_it_prev = max(its, 1)
-                count("reduced.launches", 1)
-                count("reduced.iters", its)
+                r_la_l1, rx0 = reduce_vertex_terms(cv, x_full, la_l1_dev,
+                                                   firsts, rv_cap)
+                reduced = reduce_operator(
+                    op, obs, cv, num_comp, rv_cap, onehot_max=ONEHOT_MAX,
+                    pre_at=pre_at(num_comp, op.num_obs, pfdr_it_prev))
+                rx, it_d = reduced_solve(
+                    *reduced, rgraph, r_la_l1 if has_l1 else None, rx0,
+                    num_comp, route=route, it_max=opt.pfdr.it_max,
+                    vprox=vprox, pfdr=opt.pfdr)
+                pfdr_it_prev = max(read_int(it_d), 1)
 
             # -- merge + evolution (:863-975) --------------------------------
             with span("cp.device_merge"):
                 x_full = rx[cv.to(torch.int64)]
-                active = _device_merge(graph, x_full, active, eps,
-                                       opt.dif_tol)
-                dif = float(_evolution(x_full, x_prev, eps))
+                active = device_merge(graph, x_full, active, eps,
+                                      opt.dif_tol)
+                dif = float(evolution(x_full, x_prev, eps))
                 difs.append(dif)
                 x_prev = x_full
                 it += 1
@@ -651,3 +516,15 @@ def cp_quadratic_d1_device(op: QuadOp, obs, graph: GraphD1, *,
         obj=np.asarray(objs) if monitor else np.zeros(0, dtype),
         dif=np.asarray(difs),
         state=CPState(active=active.cpu().numpy(), cv=cv_host, rx=rx_host))
+
+
+# The names benchmark/families/rof.py spans in this module (its SPANS;
+# tests/test_torch_trace.py checks that each is here), bound to the steps
+# they named before the steps were shared with the chained loop.  The
+# loops call the names above, so these spans no longer see calls; the
+# loop's own spans (cp.device_*) time the same steps.
+_direction_costs, _device_cut, _read_cuts = direction_costs, device_cut, \
+    read_cuts
+_reduce_vertex_terms, _device_merge, _evolution = reduce_vertex_terms, \
+    device_merge, evolution
+_reduced_problem, _kernel_solve = reduce_operator, reduced_solve

@@ -36,8 +36,7 @@ from ..graph import GraphD1
 from .cut_pursuit_common import (bucket, build_reduced_graph,
                                  connected_components, machine_eps,
                                  make_reduced_container, np64,
-                                 pad_reduced_graph)
-from .cut_pursuit_device import _run_sums
+                                 pad_reduced_graph, run_sums)
 from .pfdr_simplex import d1_objective, loss_objective, pfdr_loss_d1_simplex
 
 
@@ -58,7 +57,7 @@ class CPSimplexResult(NamedTuple):
     state: CPSimplexState
 
 
-def _loss_grad_np(al, p_full, q):
+def loss_grad_np(al, p_full, q):
     """Loss gradient of the full problem (``CP_PFDR_graph_loss_d1_simplex.cpp:
     327-354``), on numpy arrays (host loop) or tensors (``device_obs`` and
     the device loop) alike; the JAX package's ``_loss_grad_device`` is the
@@ -72,8 +71,8 @@ def _loss_grad_np(al, p_full, q):
     return -(al_k + al_1 * q) / (al_k / al_1 + p_full)
 
 
-def _alpha_expansion_cuts(dfs, rdi, cv, eu, ev, la_d1, active, eps,
-                          min_cut_fn=None):
+def alpha_expansion_cuts(dfs, rdi, cv, eu, ev, la_d1, active, eps,
+                         min_cut_fn=None):
     """Runs the K-1 binary expansion cuts; returns the per-vertex final
     descent counters ``djv`` (:522-606)."""
     if min_cut_fn is None:
@@ -289,14 +288,14 @@ def cp_loss_d1_simplex(graph: GraphD1, q, *, al: float,
 
         # -- gradient + active-edge d1 signs (:327-377) --------------------
         if rows is not None:
-            dfs = rows.whole(_loss_grad_np(al, torch.as_tensor(
+            dfs = rows.whole(loss_grad_np(al, torch.as_tensor(
                 rows.local(p_full, 1.0 / k), device=device), q)
             ).cpu().numpy()
         elif device_obs:
-            dfs = _loss_grad_np(
+            dfs = loss_grad_np(
                 al, torch.as_tensor(p_full, device=device), q).cpu().numpy()
         else:
-            dfs = _loss_grad_np(al, p_full, q_np)
+            dfs = loss_grad_np(al, p_full, q_np)
         ae = np.nonzero(active)[0]
         if len(ae):
             d = p_full[eu[ae]] - p_full[ev[ae]]
@@ -307,8 +306,8 @@ def cp_loss_d1_simplex(graph: GraphD1, q, *, al: float,
 
         # -- alpha-expansion cuts (:522-606) -------------------------------
         rdi = np.argmax(rp, axis=1).astype(np.int32)
-        djv = _alpha_expansion_cuts(dfs, rdi, cv, eu, ev, la_d1, active,
-                                    eps, min_cut_fn=min_cut_fn)
+        djv = alpha_expansion_cuts(dfs, rdi, cv, eu, ev, la_d1, active,
+                                   eps, min_cut_fn=min_cut_fn)
         sep = ~active & (djv[eu] != djv[ev])
         n_new = int(sep.sum())
         active |= sep
@@ -332,12 +331,12 @@ def cp_loss_d1_simplex(graph: GraphD1, q, *, al: float,
         # -- reduced observations (:733-766) -------------------------------
         if rows is not None:
             cv_t = torch.as_tensor(rows.local(cv, 0), device=device)
-            qsum = rows.total(_run_sums(q, cv_t, rv_cap)
+            qsum = rows.total(run_sums(q, cv_t, rv_cap)
                             ).cpu().numpy().astype(dtype)
             sizes = np.bincount(cv, minlength=rv_cap).astype(dtype)
         elif device_obs:
             cv_t = torch.as_tensor(cv, device=device)
-            qsum = _run_sums(q, cv_t, rv_cap).cpu().numpy().astype(dtype)
+            qsum = run_sums(q, cv_t, rv_cap).cpu().numpy().astype(dtype)
             sizes = torch.bincount(cv_t.to(torch.int64), minlength=rv_cap
                                    ).cpu().numpy().astype(dtype)
         else:

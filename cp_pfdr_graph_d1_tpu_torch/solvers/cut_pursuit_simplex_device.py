@@ -45,13 +45,12 @@ from ..config import CPOptions, numpy_dtype
 from ..graph import GraphD1
 from ..maxflow.device import _pdhg_min_cut
 from ..ops.mincut_fused import cut_problem, fused_pdhg_min_cut
-from .cut_pursuit_common import (bucket, machine_eps,
-                                 make_reduced_container)
-from .cut_pursuit_device import (CONTINUE_FACTOR, _contract_pad,
-                                 _contract_sort, _device_components,
-                                 _run_sums, stencil_kernels)
+from .cut_pursuit_common import (CONTINUE_FACTOR, bucket, contract_pad,
+                                 contract_sort, machine_eps,
+                                 make_reduced_container, run_sums)
+from .cut_pursuit_device import device_components, stencil_kernels
 from .cut_pursuit_simplex import (CPSimplexResult, CPSimplexState,
-                                  _alpha_expansion_cuts, _loss_grad_np)
+                                  alpha_expansion_cuts, loss_grad_np)
 from .pfdr_simplex import d1_objective, loss_objective, pfdr_loss_d1_simplex
 
 
@@ -59,7 +58,7 @@ def _direction_costs_simplex(graph: GraphD1, q, p_full, active, al: float,
                              eps: float):
     """Loss gradient + active-edge d1 sign terms, [V, K] on the device
     (``CP_PFDR_graph_loss_d1_simplex.cpp:327-377``)."""
-    dfs = _loss_grad_np(al, p_full, q)
+    dfs = loss_grad_np(al, p_full, q)
     pu, pv = graph.gather_endpoints(p_full)
     d = pu - pv
     s = (d > eps).to(d.dtype) - (d < -eps).to(d.dtype)
@@ -75,7 +74,7 @@ def _sel_label(dfs, idx):
 def _expansion_capacities(graph: GraphD1, dfs, i_of_v, djv, active, n: int):
     """Unary costs and symmetric edge weights of expansion cut ``n``
     (``:539-595``; the KZ decomposition as weights + unary credits, see the
-    host twin :func:`.cut_pursuit_simplex._alpha_expansion_cuts`)."""
+    host twin :func:`.cut_pursuit_simplex.alpha_expansion_cuts`)."""
     dfs_i = _sel_label(dfs, i_of_v)
     j_of_v = torch.where(i_of_v < n, n, n - 1)
     dfs_j = _sel_label(dfs, j_of_v)
@@ -228,9 +227,9 @@ def _host_expansion_fallback(graph: GraphD1, dfs, rdi, cv, active,
                              eps: float):
     """Host push-relabel rerun of the whole K-1 expansion sequence
     (certificate failure: later cuts consumed uncertified labels), with the
-    host twin :func:`.cut_pursuit_simplex._alpha_expansion_cuts`."""
+    host twin :func:`.cut_pursuit_simplex.alpha_expansion_cuts`."""
     eu, ev, la = graph.host_coo()
-    djv = _alpha_expansion_cuts(
+    djv = alpha_expansion_cuts(
         dfs.cpu().numpy().astype(np.float64), rdi.cpu().numpy(),
         cv.cpu().numpy(), eu, ev, np.asarray(la, np.float64),
         active.cpu().numpy(), float(eps), min_cut_fn=maxflow.min_cut)
@@ -327,18 +326,18 @@ def cp_loss_d1_simplex_device(graph: GraphD1, q, *, al: float,
         # -- contraction, on the device (:643-731) ---------------------------
         if record is not None:
             record.append(("components", it, active.clone()))
-        cv, num_comp_t, _ = _device_components(graph, active)
-        lo_s, hi_s, w_s, flags, re_count = _contract_sort(cv, graph, active)
+        cv, num_comp_t, _ = device_components(graph, active)
+        lo_s, hi_s, w_s, flags, re_count = contract_sort(cv, graph, active)
         num_comp, re_count = (int(v) for v in torch.stack(
             [num_comp_t.to(torch.int64), re_count.to(torch.int64)]).cpu())
         rv_cap = bucket(num_comp)
-        reu, rev, rla = _contract_pad(lo_s, hi_s, w_s, flags, num_comp, eps,
-                                      rv_cap, bucket(re_count))
+        reu, rev, rla = contract_pad(lo_s, hi_s, w_s, flags, num_comp, eps,
+                                     rv_cap, bucket(re_count))
         rgraph = make_reduced_container(reu, rev, rla, rv_cap, q.dtype,
                                         q.device)
 
         # -- reduced observations (:733-766) --------------------------------
-        qsum = _run_sums(q, cv, rv_cap)
+        qsum = run_sums(q, cv, rv_cap)
         sizes = torch.bincount(cv.to(torch.int64),
                                minlength=rv_cap).to(q.dtype)
         rq, rp0, rla_f = _reduced_problem(qsum, sizes, num_comp, float(al),

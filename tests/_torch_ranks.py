@@ -337,8 +337,8 @@ def cp_dist_device_cases(mesh):
         return wrapped
 
     patched = [(m, name, getattr(m, name)) for m, name in
-               ((cpd, "_device_cut"), (cpd, "_device_cut_duplex"),
-                (chn, "_device_cut"))]
+               ((cpd, "device_cut"), (cpd, "_device_cut_duplex"),
+                (chn, "device_cut"))]
     for m, name, fn in patched:
         setattr(m, name, counting(fn))
     out = {}
@@ -384,8 +384,9 @@ REDUCED_CASES = (("premultiplied", 60, 60, None),
 
 
 def cp_dist_reduced_cases(mesh):
-    """``_reduced_problem`` of the sharded operators against the same call
-    on the whole single-device operator in this rank: per case of
+    """The device loops' contraction (``reduce_operator`` with the
+    premultiplication rule ``pre_at``) of the sharded operators against the
+    same call on the whole single-device operator in this rank: per case of
     ``REDUCED_CASES`` (and the Gram operator within and beyond the cap)
     ``{"dist": (kind, mat, ry, lipsch), "single": ...}``, or the two
     errors' messages."""
@@ -393,15 +394,17 @@ def cp_dist_reduced_cases(mesh):
     from cp_pfdr_graph_d1_tpu_torch.ops.reduced_setup import metric_value
     from cp_pfdr_graph_d1_tpu_torch.parallel import \
         shard_cp_quadratic_problem
-    from cp_pfdr_graph_d1_tpu_torch.solvers.cut_pursuit_common import bucket
-    from cp_pfdr_graph_d1_tpu_torch.solvers.cut_pursuit_device import \
-        _reduced_problem
+    from cp_pfdr_graph_d1_tpu_torch.solvers.cut_pursuit import (
+        pre_at, reduce_operator)
+    from cp_pfdr_graph_d1_tpu_torch.solvers.cut_pursuit_common import (
+        ONEHOT_MAX, bucket)
 
     def reduced(op, obs, cv, num_comp, it_prev, cap):
-        kw = {} if cap is None else dict(onehot_max=cap)
         try:
-            r_op, mat, ry, lipsch = _reduced_problem(
-                op, obs, cv, num_comp, bucket(num_comp), it_prev, **kw)
+            r_op, mat, ry, lipsch = reduce_operator(
+                op, obs, cv, num_comp, bucket(num_comp),
+                pre_at=pre_at(num_comp, op.num_obs, it_prev),
+                onehot_max=ONEHOT_MAX if cap is None else cap)
         except ValueError as e:
             return str(e)
         return (type(r_op).__name__, mat.numpy(), ry.numpy(),

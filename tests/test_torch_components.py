@@ -24,7 +24,7 @@ from cp_pfdr_graph_d1_tpu_torch.ops import components_fused as tcf
 from cp_pfdr_graph_d1_tpu_torch.solvers.cut_pursuit_common import \
     connected_components
 from cp_pfdr_graph_d1_tpu_torch.solvers.cut_pursuit_device import \
-    _device_components
+    device_components
 from ._torch_cuda_source import (assert_struct_mirrors, cuda_constant,
                                 cuda_source)
 
@@ -78,13 +78,13 @@ def test_snake_components_converge():
     act = np.random.default_rng(5).random(gt.num_edges) < 0.45
     eu, ev, la = gt.host_coo()
     _, nc_true, cv_true = scipy_roots(gt, ~act & (la > 0))
-    cvf, ncf, _ = _device_components(gt, torch.from_numpy(act))
+    cvf, ncf, _ = device_components(gt, torch.from_numpy(act))
     assert int(ncf) == nc_true
     np.testing.assert_array_equal(cvf.numpy(), cv_true)
     keep = la > 0
     gc = GraphD1.create(eu[keep], ev[keep], la[keep], num_vertices=side**2,
                         dtype=torch.float64, device="cpu")
-    cvg, ncg, _ = _device_components(gc, torch.from_numpy(act[keep]))
+    cvg, ncg, _ = device_components(gc, torch.from_numpy(act[keep]))
     assert int(ncg) == nc_true
     np.testing.assert_array_equal(cvg.numpy(), cv_true)
 
@@ -119,7 +119,7 @@ def test_coo_device_components_match_jax():
     gt = GraphD1.create(eu, ev, la, num_vertices=v, dtype=torch.float64,
                         device="cpu")
     cv_j, n_j, f_j = jax_device_components(gj, jnp.asarray(act))
-    cv_t, n_t, f_t = _device_components(gt, torch.from_numpy(act))
+    cv_t, n_t, f_t = device_components(gt, torch.from_numpy(act))
     assert int(n_t) == int(n_j)
     np.testing.assert_array_equal(cv_t.numpy(), np.asarray(cv_j))
     np.testing.assert_array_equal(f_t.numpy(), np.asarray(f_j))

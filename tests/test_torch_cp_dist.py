@@ -230,12 +230,13 @@ def test_cp_dist_device_cut_runs_on_the_device(ranks, p):
                          + ["gram", "gram_beyond"])
 @pytest.mark.parametrize("p", SHARDS)
 def test_cp_dist_reduced_problem_matches_single_device(ranks, p, name):
-    """``_reduced_problem`` of the sharded operator equals that of the whole
-    operator on one device: the premultiplication choice, the reduced
-    operator and observation (the padded observation rows are zero) and
-    the Lipschitz metric, with one-hot products and with segment sums
-    beyond a forced cap; the Gram operator beyond the cap raises the same
-    error.  Every rank gets the same reduced problem."""
+    """The device loops' contraction (``reduce_operator``, ``pre_at``) of
+    the sharded operator equals that of the whole operator on one device:
+    the premultiplication choice, the reduced operator and observation
+    (the padded observation rows are zero) and the Lipschitz metric, with
+    one-hot products and with segment sums beyond a forced cap; the Gram
+    operator beyond the cap raises the same error.  Every rank gets the
+    same reduced problem."""
     out = ranks[p][0]["reduced"][name]
     dist, single = out["dist"], out["single"]
     if name == "gram_beyond":

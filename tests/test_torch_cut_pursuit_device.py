@@ -142,13 +142,13 @@ def test_uncertified_cut_continues_then_falls_back(cut_it_max, host,
     y = torch.from_numpy(denoise_problem())
     _, gt = graphs(24, 24, 0.15)
     caps = []
-    device_cut = cpd._device_cut
+    device_cut = cpd.device_cut
 
     def recording(*args):
         caps.append(args[4])
         return device_cut(*args)
 
-    monkeypatch.setattr(cpd, "_device_cut", recording)
+    monkeypatch.setattr(cpd, "device_cut", recording)
     pf = T.PFDROptions(rho=1.5, dif_tol=1e-7, it_max=4000)
     opt = T.CPOptions(dif_tol=1e-5, it_max=10, pfdr=pf, cut="device",
                       chain="off", cut_it_max=cut_it_max)
@@ -237,8 +237,8 @@ def test_chain_cap_follows_solve_small_fit(monkeypatch):
                       pfdr=T.PFDROptions(rho=1.5, dif_tol=1e-9, it_max=4000))
     monkeypatch.setattr(tch, "_FUSED_INNER_CAP", 100)
     caps = []
-    kernel_solve = tch._kernel_solve
-    monkeypatch.setattr(tch, "_kernel_solve", lambda *args, **kw: (
+    kernel_solve = tcp._kernel_solve
+    monkeypatch.setattr(tcp, "_kernel_solve", lambda *args, **kw: (
         caps.append(args[8]), kernel_solve(*args, **kw))[1])
 
     def solve():

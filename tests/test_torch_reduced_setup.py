@@ -71,6 +71,14 @@ def reduced_problem(mode, rv=100, seed=0, dtype=torch.float64,
             rgraph, t(np.full(RV_CAP, 0.02)), t(x0), pre_at)
 
 
+def contract(kind, op_arr, obs, cv, pre_at):
+    """``(r_op, mat, ry, lipsch)`` of :func:`reduced_problem`'s operator,
+    contracted as the host loop does (one-hot products)."""
+    op = {"dense": DenseOp, "gram": GramOp, "diag": DiagOp}[kind](op_arr)
+    return tcp.reduce_operator(op, obs, cv, RV_CAP, RV_CAP, pre_at=pre_at,
+                               onehot_max=RV_CAP)
+
+
 def seed_metric(mode, mat):
     """The DIAG Lipschitz metric as the contraction computed it before the
     set-up took over its power iteration, from the reduced operator's
@@ -122,8 +130,7 @@ def test_plain_setup_equals_the_chain_it_replaces(mode, sort_edges, l1):
     r_la_l1 = r_la_l1 if l1 else None
     kw = dict(vprox=VertexProx(kind="l1", positivity=True), rho=1.5,
               dif_tol=1e-6, sort_edges=sort_edges)
-    r_op, mat, ry, pending = tcp._reduce_operator(kind, op_arr, obs, cv,
-                                                  RV_CAP, pre_at)
+    r_op, mat, ry, pending = contract(kind, op_arr, obs, cv, pre_at)
     assert isinstance(pending, rs.PendingMetric) == (
         mode not in ("dense_twice", "diag"))
     lipsch = seed_metric(mode, mat)
@@ -163,8 +170,7 @@ def test_route_of_the_power_iteration():
     assert rs.smem_bytes(cap, 8) <= rs.MAX_SMEM_BYTES
     # on the CPU a pending metric is computed, a tensor passes
     kind, op_arr, obs, cv, *_, pre_at = reduced_problem("pre_at")
-    _, _, _, pending = tcp._reduce_operator(kind, op_arr, obs, cv, RV_CAP,
-                                           pre_at)
+    _, _, _, pending = contract(kind, op_arr, obs, cv, pre_at)
     value = rs.settle_metric(pending)
     assert torch.equal(value, rs.metric_value(pending))
     assert rs.settle_metric(value) is value
@@ -368,8 +374,7 @@ def test_setup_kernel_matches_its_plain_version(monkeypatch, mode, dtype):
         pytest.skip("needs a CUDA device")
     kind, op_arr, obs, cv, rgraph, r_la_l1, x0, pre_at = reduced_problem(
         mode, dtype=dtype, device="cuda", n=91)
-    r_op, mat, ry, pending = tcp._reduce_operator(kind, op_arr, obs, cv,
-                                                  RV_CAP, pre_at)
+    r_op, mat, ry, pending = contract(kind, op_arr, obs, cv, pre_at)
     # the power steps each side counts, read here rather than traced
     steps = {"kernel": [], "plain": []}
     monkeypatch.setattr(rs, "count_device", lambda name, t: steps[

@@ -103,7 +103,7 @@ def test_route_functions_on_the_card():
 
 
 def test_device_cut_and_components_routes(monkeypatch):
-    """``_device_cut``, ``_device_components`` and the multi-label
+    """``device_cut``, ``device_components`` and the multi-label
     ``_device_side`` take the stencil kernels' wrappers only where the
     kernels take the stencil; F = 17 runs the plain loops."""
     calls = []
@@ -127,8 +127,8 @@ def test_device_cut_and_components_routes(monkeypatch):
         active = torch.from_numpy(r.random(e) < 0.2)
         c = torch.from_numpy(r.normal(size=v))
         calls.clear()
-        sep, gap, big, _, _ = cpd._device_cut(g, active, c, 1e-6, 2000, 250)
-        cv, num_comp, _ = cpd._device_components(g, active)
+        sep, gap, big, _, _ = cpd.device_cut(g, active, c, 1e-6, 2000, 250)
+        cv, num_comp, _ = cpd.device_components(g, active)
         w = torch.where(active, 0.0, g.la_d1)
         side, *_ = cpsd._device_side(g, w, c, 1e-6, 2000, 250)
         assert calls == (["cut", "comp", "side"] if kernels else [])

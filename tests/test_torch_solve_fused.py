@@ -19,7 +19,7 @@ import cp_pfdr_graph_d1_tpu as J
 from cp_pfdr_graph_d1_tpu.banded_graph import BandedGraphD1
 from cp_pfdr_graph_d1_tpu_torch import (DenseOp, DiagOp, GramOp, GraphD1,
                                         IdentityOp, VertexProx)
-from cp_pfdr_graph_d1_tpu_torch.config import Lipsch
+from cp_pfdr_graph_d1_tpu_torch.config import Lipsch, PFDROptions
 from cp_pfdr_graph_d1_tpu_torch.ops import solve_fused, solve_small
 from cp_pfdr_graph_d1_tpu_torch.solvers import cut_pursuit as tcp
 from cp_pfdr_graph_d1_tpu_torch.solvers.pfdr_quadratic import \
@@ -185,16 +185,17 @@ def test_kernel_route_beyond_solve_small(monkeypatch):
                         dtype=torch.float64)
     args = (r_op, r_op.a, torch.from_numpy(y), lipsch, g,
             torch.full((v,), 0.02, dtype=torch.float64),
-            torch.zeros(v, dtype=torch.float64), v, 2000)
-    kw = dict(vprox=VertexProx(kind="l1", positivity=True), rho=1.5,
-              dif_tol=1e-6)
-    x_s, it_s = tcp._kernel_solve(*args, **kw)
+            torch.zeros(v, dtype=torch.float64), v)
+    kw = dict(route="kernel", it_max=2000,
+              vprox=VertexProx(kind="l1", positivity=True),
+              pfdr=PFDROptions(rho=1.5, dif_tol=1e-6))
+    x_s, it_s = tcp.reduced_solve(*args, **kw)
     calls = []
     monkeypatch.setattr(tcp, "fits", lambda *a: False)
     monkeypatch.setattr(tcp, "fused_pfdr_solve",
                         lambda *a, **k: calls.append(a[8:10]) or
                         solve_fused.fused_pfdr_solve(*a, **k))
-    x_f, it_f = tcp._kernel_solve(*args, **kw)
+    x_f, it_f = tcp.reduced_solve(*args, **kw)
     assert len(calls) == 1
     key = torch.minimum(*calls[0])
     assert bool((key[1:] >= key[:-1]).all())

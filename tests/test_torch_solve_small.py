@@ -22,7 +22,7 @@ import pytest
 import torch
 
 from cp_pfdr_graph_d1_tpu_torch import GraphD1, VertexProx
-from cp_pfdr_graph_d1_tpu_torch.config import Lipsch
+from cp_pfdr_graph_d1_tpu_torch.config import Lipsch, PFDROptions
 from cp_pfdr_graph_d1_tpu_torch.operators import DenseOp, DiagOp, GramOp
 from cp_pfdr_graph_d1_tpu_torch.ops import solve_small
 from cp_pfdr_graph_d1_tpu_torch.ops.reduced_setup import (metric_value,
@@ -210,10 +210,12 @@ def test_reduce_solve_small_matches_jax(mode, vkind, rv, it_max, dif_tol):
     t = torch.from_numpy
     g = GraphD1.create(reu, rev, rla, num_vertices=RV_CAP,
                        dtype=torch.float64, device="cpu")
+    op = {"dense": DenseOp, "gram": GramOp, "diag": DiagOp}[kind](t(op_arr))
     x_t, it_t = tcp._reduce_solve_small(
-        t(op_arr), t(obs), t(cv.astype(np.int64)), g,
-        None if la_l1 is None else t(la_l1), t(x0), it_max, rv, kind=kind,
-        pre_at=pre_at, vprox=vprox, rho=1.4, dif_tol=dif_tol)
+        op, t(obs), t(cv.astype(np.int64)), g,
+        None if la_l1 is None else t(la_l1), t(x0), it_max, rv,
+        pre_at=pre_at, vprox=vprox,
+        pfdr=PFDROptions(rho=1.4, dif_tol=dif_tol), route="kernel")
     assert int(it_t) == it_j
     np.testing.assert_allclose(x_t.numpy(), x_j, rtol=0, atol=1e-12)
 

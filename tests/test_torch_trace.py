@@ -125,14 +125,13 @@ def test_a_traced_solve_records_its_span_tree_and_counters(monkeypatch,
     with_fused(monkeypatch, fused)
     prob = problem()
     calls = []
-    target = "_reduce_solve_small" if fused == "on" else "pfdr_quadratic_d1"
-    orig = getattr(cut_pursuit, target)
+    orig = cut_pursuit.reduced_solve
 
     def counted(*args, **kw):
         out = orig(*args, **kw)
-        calls.append(int(out[1] if fused == "on" else out.it))
+        calls.append(int(out[1]))
         return out
-    monkeypatch.setattr(cut_pursuit, target, counted)
+    monkeypatch.setattr(cut_pursuit, "reduced_solve", counted)
     out, recs = traced(lambda: solve(prob))
     assert len(recs) == 1
     rec = recs[0]
